@@ -1,30 +1,47 @@
-"""Drive the PyTorch port's flagship training generation on one NVIDIA card.
+"""Drive the PyTorch port's training paths on one NVIDIA card.
 
     python3 chip_smoke.py
 
 Phases, each printing its lines; any failure raises and exits non-zero:
 
 1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
-2. build both CUDA kernels from marlpde_tpu_torch/csrc (nvcc, sm_90a);
-3. each kernel against its plain PyTorch version on the card at the shapes of
-   the flagship path, with CUDA-event times (median of 20 calls) of both;
-4. the main path: three generations of the flagship burger-marl training
-   (1024 episodes of 500 macro-steps, 32 agents, 200 VRACER updates each)
-   through registry.make_env / trainer.train, with the kernels' launch counts;
-5. a time breakdown of one more generation's phases (collect, normalizer
-   update and replay insert, updates), and a small deterministic collection
-   on the card against the same collection on the CPU (plain versions).
+2. build both CUDA kernels from marlpde_tpu_torch/csrc (one nvcc per source,
+   started together; sm_90a);
+3. [kernels] each kernel against its plain PyTorch version on the card at the
+   shapes of the paths below, with CUDA-event times (median of 20 calls) of
+   both: ABCN at the flagship batch, the MLP at widths 128 and 256 in both
+   mu_param modes and at the acting and insert row counts of the CLI;
+4. [main] three generations of the flagship fused episode-mode burger-marl
+   training (1024 episodes of 500 macro-steps, 32 agents, 200 VRACER updates
+   each) through registry.make_env / trainer.train, with launch counts;
+5. [breakdown] one more such generation's phases, and [small] a small
+   deterministic collection on the card against the same on the CPU;
+6. [cli] the run-918 flagship through ``python -m marlpde_tpu_torch.run``'s
+   ``main`` (experience mode, korali's ledger, testing, checkpoints,
+   diagnostics) for 6 generations, then ``--resume`` for a 7th, in a fresh
+   temporary directory; [cli-breakdown] one generation's collection, insert
+   and 2500 updates timed apart;
+7. [cli-w256] one generation at the CLI's default width 256;
+8. [fast-off] a deterministic collection through the general per-env env
+   (torch.fft solver) against the whole-batch env (ABCN kernel), same weights.
 
-Standard output ends with one JSON line of kernel results, then the contract
-line {"ok": true, "device": {...}}.  Without a CUDA card, or without the
-package beside it, the script exits non-zero and prints no result.
+Launch counts are set to 0 just before each path and read just after; the
+comparisons of a kernel with its plain version are not counted.  Standard
+output ends with one JSON line of kernel results (launches of the [cli]
+path, and of each path under "launches_by_path"), then the contract line
+{"ok": true, "device": {...}}.  Without a CUDA card, or without the package
+beside it, the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 FLAGSHIP = dict(N_dns=512, grid_size=32, num_actions=32, num_agents=32, dt=1e-3,
@@ -34,6 +51,11 @@ NUM_ENVS = 1024
 GENERATIONS = 3
 ABCN_TOL = 1e-5     # relative to each field's max |value|
 MLP_TOL = 2e-5      # absolute, as tests/test_pallas.py holds the Pallas MLP
+FAST_OFF_TOL = 1e-4  # relative to each tensor's max |value|: float32, two solvers
+# the run-918 flagship (scripts/tpu_flagship_918.sh)
+RUN_918 = ("burger-marl --nagents 32 --specreward --dforce --ic turbulence --width 128 "
+           "--iex 0.1 --numenvs 10 --mbsize 8 --maxupd 2500 --testepisodes 8 "
+           "--rscale cumulative --trust forward --diag").split()
 
 
 def check(cond, msg):
@@ -102,11 +124,14 @@ def phase_kernels(env, dev):
                     replaces="marlpde_tpu/ops/abcn_pallas.py:105",
                     max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)]
 
-    R = NUM_ENVS * cfg.num_agents
-    x = torch.randn(R, cfg.obs_dim, generator=g, device=dev)
-    mlp_errs, mlp_ms, mlp_plain = [], [], []
-    for mu_param in ("absolute", "sigma_relative"):
-        net = networks.VracerNet(cfg.obs_dim, cfg.actions_per_agent, width=128,
+    # flagship acting rows (1024 envs x 32 agents), then the CLI's acting rows
+    # (10 x 32) and insert rows (10 x 500 x 32)
+    mlp_rows = []
+    for R, width, mu_param in [(NUM_ENVS * cfg.num_agents, w, m) for w in (128, 256)
+                               for m in ("absolute", "sigma_relative")] + \
+            [(R, w, "absolute") for R in (320, 160000) for w in (128, 256)]:
+        x = torch.randn(R, cfg.obs_dim, generator=g, device=dev)
+        net = networks.VracerNet(cfg.obs_dim, cfg.actions_per_agent, width=width,
                                  mu_param=mu_param, device=dev, generator=g)
         with torch.no_grad():
             for p in net.parameters():      # non-zero heads, so every output is tested
@@ -119,18 +144,23 @@ def phase_kernels(env, dev):
                   "mlp output shape")
             ms = median_ms(lambda: mlp.mlp_forward(x, net))
             plain_ms = median_ms(lambda: net(x))
-        print(f"[kernels] mlp_forward R={R} obs={cfg.obs_dim} W=128 A=1 "
+        print(f"[kernels] mlp_forward R={R} obs={cfg.obs_dim} W={width} A=1 "
               f"mu_param={mu_param}: max abs err {err:.3e} (tolerance {MLP_TOL:g}: "
-              f"float32 sums of 128 terms in another order than cuBLAS); "
+              f"float32 sums of {width} terms in another order than cuBLAS); "
               f"kernel {ms:.4f} ms, plain module {plain_ms:.4f} ms")
-        check(err <= MLP_TOL, f"mlp kernel disagrees with VracerNet ({mu_param}): {err:.3e}")
-        mlp_errs.append(err)
-        mlp_ms.append(ms)
-        mlp_plain.append(plain_ms)
+        check(err <= MLP_TOL, f"mlp kernel disagrees with VracerNet (W={width}, "
+                              f"{mu_param}): {err:.3e}")
+        mlp_rows.append(dict(R=R, width=width, mu_param=mu_param, err=err, ms=ms,
+                             plain_ms=plain_ms))
+    flag = {(r["width"], r["mu_param"]): r for r in mlp_rows if r["R"] == NUM_ENVS * 32}
     results.append(dict(name="mlp_forward", route="cuda",
                         source="marlpde_tpu_torch/csrc/mlp.cu",
                         replaces="marlpde_tpu/ops/mlp_pallas.py:71",
-                        max_abs_err=max(mlp_errs), ms=mlp_ms[0], plain_ms=mlp_plain[0]))
+                        max_abs_err=max(r["err"] for r in mlp_rows),
+                        ms=flag[128, "absolute"]["ms"],
+                        plain_ms=flag[128, "absolute"]["plain_ms"],
+                        ms_w256=flag[256, "absolute"]["ms"],
+                        plain_ms_w256=flag[256, "absolute"]["plain_ms"]))
     return results
 
 
@@ -247,6 +277,185 @@ def phase_small_agreement(dev):
     check(worst <= 1e-4, f"card and CPU collections disagree: {worst:.3e}")
 
 
+def _cli(argv, tag):
+    """``marlpde_tpu_torch.run.main(argv)`` with its standard output captured:
+    returns (ts, rep, history, per-generation rows, captured lines).  Each
+    row holds the generation's seconds and kernel launches."""
+    import torch
+    from marlpde_tpu_torch import run
+    from marlpde_tpu_torch.kernels import abcn, mlp
+
+    rows = []
+
+    def report(gen, ts, rep, hist):
+        torch.cuda.synchronize()
+        rows.append(dict(gen=gen, wall=hist["wall_time"][-1], abcn=abcn.launches,
+                         mlp=mlp.launches))
+
+    buf = io.StringIO()
+    abcn.launches = 0
+    mlp.launches = 0
+    with contextlib.redirect_stdout(buf):
+        ts, rep, hist = run.main(argv, callback=report)
+    lines = buf.getvalue().splitlines()
+    prev = dict(wall=0.0, abcn=0, mlp=0)
+    for r in rows:
+        r["s"] = r["wall"] - prev["wall"]
+        r["d_abcn"], r["d_mlp"] = r["abcn"] - prev["abcn"], r["mlp"] - prev["mlp"]
+        prev = r
+    for ln in lines:
+        print(f"[{tag}] | {ln}")
+    json_lines = [ln for ln in lines if ln.startswith("{")]
+    check(len(json_lines) == 1, f"{tag}: the CLI printed {len(json_lines)} JSON lines")
+    out = json.loads(json_lines[0])
+    check(out["workload"] == argv[0] and out["generations"] == hist["gen"][-1]
+          and out["final_mean_return"] == hist["mean_return"][-1], f"{tag}: JSON line {out}")
+    return ts, rep, hist, rows, dict(abcn_macro_step=abcn.launches, mlp_forward=mlp.launches)
+
+
+def _check_generations(tag, hist, rows, first_gen):
+    import numpy as np
+    for r in rows:
+        i = r["gen"] - 1
+        m = hist["metrics"][i]
+        print(f"[{tag}] gen {r['gen']}: {r['s']:.3f} s, updates {hist['updates'][i]}, "
+              f"mean_return {hist['mean_return'][i]:.6f}, blowups {hist['blowups'][i]}, "
+              f"ep_len {hist['mean_ep_len'][i]:.1f}, launches abcn +{r['d_abcn']} "
+              f"mlp +{r['d_mlp']}, beta {m.get('beta', '-')}", flush=True)
+        check(r["d_abcn"] >= 500 and r["d_mlp"] >= 500,
+              f"{tag} gen {r['gen']}: kernels launched abcn {r['d_abcn']}, mlp {r['d_mlp']}")
+        check(np.isfinite(hist["mean_return"][i]), f"{tag} gen {r['gen']}: return")
+        check(all(np.isfinite(v) for v in m.values()), f"{tag}: metrics not finite: {m}")
+        check(bool(m) == (hist["updates"][i] > 0), f"{tag} gen {r['gen']}: metrics {m}")
+    check(rows[0]["gen"] == first_gen, f"{tag}: first generation {rows[0]['gen']}")
+
+
+def _check_state_on_card(tag, ts, rep):
+    import torch
+    check(all(p.is_cuda and torch.isfinite(p).all() for p in ts.net.parameters()),
+          f"{tag}: params not finite or not on the card")
+    check(ts.beta.is_cuda and rep.obs.is_cuda and rep.vtg.is_cuda and rep.ep_last.is_cuda,
+          f"{tag}: train state or replay not on the card")
+
+
+def phase_cli(workdir):
+    """The run-918 flagship through the CLI: 6 generations, then --resume."""
+    import numpy as np
+    import torch
+
+    ts, rep, hist, rows, launches = _cli(RUN_918 + ["--NE", "30000", "--testfreq", "2"], "cli")
+    _check_generations("cli", hist, rows, 1)
+    # korali ledger: rstart 20000, expperu 0.5, cap 2500, 5000 live steps a generation
+    check(hist["updates"] == [0, 0, 0, 0, 2500, 2500], f"cli updates {hist['updates']}")
+    check(ts.n_updates == 5000, f"cli n_updates {ts.n_updates}")
+    check(hist["blowups"][0] == 0, f"cli generation 1 had {hist['blowups'][0]} blowups")
+    check(len(hist["test_return"]) == 3 and np.isfinite(hist["test_return"]).all(),
+          f"cli test returns {hist['test_return']}")
+    res = os.path.join(workdir, "_result_burger-marl_0")
+    best = os.path.join(res, "best")
+    check(all(os.path.exists(os.path.join(best, f)) for f in ("latest.pt", "best.json")),
+          "cli: best/ checkpoint missing")
+    with open(os.path.join(best, "best.json")) as f:
+        best_json = json.load(f)
+    check(best_json["test_return"] == max(hist["test_return"]), f"cli best.json {best_json}")
+    diag_keys = {"v0_scaled", "return_scaled", "rew_scale", "mu_drift_rms",
+                 "mu_from_init_rms", "mu_rms", "sigma_probe", "replay_occupancy"}
+    check(len(hist["diag"]) == 6 and all(set(d) == diag_keys for d in hist["diag"]),
+          "cli: diag rows")
+    check(all(os.path.exists(os.path.join(res, f))
+              for f in ("latest.pt", "history.json", "meta.npz")), "cli: checkpoint missing")
+    _check_state_on_card("cli", ts, rep)
+    print(f"[cli] test returns {hist['test_return']}, best {best_json}, "
+          f"last diag {json.dumps(hist['diag'][-1])}")
+    print(f"[cli] last update metrics: {json.dumps(hist['metrics'][-1])}")
+
+    ts, rep, hist, rows2, launches2 = _cli(
+        RUN_918 + ["--NE", "35000", "--testfreq", "2", "--resume"], "cli-resume")
+    _check_generations("cli-resume", hist, rows2, 7)
+    check(hist["gen"] == list(range(1, 8)) and hist["updates"][6] == 2500,
+          f"cli resume: gens {hist['gen']} updates {hist['updates']}")
+    check(ts.n_updates == 7500, f"cli resume n_updates {ts.n_updates}")
+    _check_state_on_card("cli-resume", ts, rep)
+    total = {k: launches[k] + launches2[k] for k in launches}
+    return ts, rep, total
+
+
+def phase_cli_breakdown(ts, rep):
+    """One run-918 generation's phases on the card, each ended by a sync:
+    collection, normalizers + flat insert, 2500 experience-mode updates."""
+    import torch
+    from marlpde_tpu_torch import run
+    from marlpde_tpu_torch.envs import rollout
+    from marlpde_tpu_torch.train import trainer
+
+    env, rl_cfg, _ = run.make_workload(run.build_parser().parse_args(RUN_918))
+    g = torch.Generator(device=ts.beta.device).manual_seed(7)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (traj, _), t_collect = timed(lambda: rollout.collect_episodes(env, rl_cfg, ts, g, 10, 70))
+    (ts, rep), t_insert = timed(lambda: trainer.insert_generation(rl_cfg, ts, rep, traj))
+    _, t_update = timed(lambda: trainer.run_updates(rl_cfg, ts, rep, g, 2500))
+    print(f"[cli-breakdown] collect (10 envs x 500 macro-steps) {t_collect:.3f} s, "
+          f"normalizers + flat insert {t_insert:.3f} s, 2500 updates {t_update:.3f} s "
+          f"({1000 * t_update / 2500:.3f} ms per update at mbsize 8)")
+
+
+def phase_cli_w256():
+    """One generation at the CLI's default width (256): the repaired kernel
+    on the main path."""
+    ts, rep, hist, rows, launches = _cli(
+        "burger-marl --nagents 32 --specreward --dforce --ic turbulence --NE 5000 "
+        "--numenvs 10 --run 256".split(), "cli-w256")
+    _check_generations("cli-w256", hist, rows, 1)
+    check(ts.net.width == 256 and hist["gen"] == [1] and hist["blowups"][0] == 0,
+          f"cli-w256: width {ts.net.width}, gens {hist['gen']}")
+    _check_state_on_card("cli-w256", ts, rep)
+    return launches
+
+
+def phase_fast_off(dev):
+    """A deterministic collection at flagship widths, B=64 and 20 macro-steps
+    of 10 sub-steps, through fast='off' (per-env env, torch.fft solver) and
+    fast='auto' (whole-batch env, ABCN kernel), with the same weights."""
+    import torch
+    from marlpde_tpu_torch.envs import registry, rollout
+    from marlpde_tpu_torch.kernels import abcn
+    from marlpde_tpu_torch.rl import vracer
+    from marlpde_tpu_torch.train import trainer
+
+    kw = dict(FLAGSHIP, T=0.2, episode_length=20)
+    trajs, weights = {}, None
+    for fast in ("off", "auto"):
+        env = registry.make_env("burger", device=dev, fast=fast, **kw)
+        check(env.whole_batch == (fast == "auto"), f"fast={fast} env")
+        rl_cfg = trainer.default_rl_config(env, width=128)
+        ts = vracer.init_train(rl_cfg, torch.Generator(device=dev).manual_seed(5), device=dev)
+        if weights is None:
+            weights = ts.net.state_dict()
+        ts.net.load_state_dict(weights)
+        before = abcn.launches
+        trajs[fast] = rollout.collect_episodes(env, rl_cfg, ts, None, 64, deterministic=True)[0]
+        torch.cuda.synchronize()
+        check((abcn.launches - before) == (20 if fast == "auto" else 0),
+              f"fast={fast}: abcn launches {abcn.launches - before}")
+    worst = {}
+    for name in ("obs", "actions", "mu", "sigma", "rewards", "mask", "final_obs"):
+        a, b = trajs["off"][name], trajs["auto"][name]
+        check(a.shape == b.shape and torch.isfinite(a).all(), f"fast-off {name}")
+        worst[name] = ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+    check(torch.equal(trajs["off"]["truncated"], trajs["auto"]["truncated"]), "truncated flags")
+    print(f"[fast-off] B=64, 20 macro-steps x 10 sub-steps, N_dns 512, 32 agents: max err "
+          f"relative to each tensor's max |value| {json.dumps(worst)} (tolerance "
+          f"{FAST_OFF_TOL:g}: float32 torch.fft against the kernel's direct DFT sums)")
+    check(max(worst.values()) <= FAST_OFF_TOL, f"fast='off' and 'auto' disagree: {worst}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -266,9 +475,11 @@ def main() -> int:
     dev = resolve_device("cuda")
 
     t0 = time.perf_counter()
-    for name in ("abcn", "mlp"):
-        build.load(name)
-    print(f"[build] abcn.cu and mlp.cu built and loaded in {time.perf_counter() - t0:.2f} s")
+    build.build_all(("abcn", "mlp"))
+    build.load("abcn")
+    build.load("mlp")
+    print(f"[build] abcn.cu and mlp.cu built (in parallel) and loaded in "
+          f"{time.perf_counter() - t0:.2f} s")
     for name, log in build.build_logs.items():
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
         print(f"[build] {name}: {' | '.join(regs)}")
@@ -279,11 +490,26 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s; obs_dim {env.obs_dim}")
 
     kernels = phase_kernels(env, dev)
-    ts, rep, rl_cfg, launches = phase_main_path(env)
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
+    ts, rep, rl_cfg, launches_main = phase_main_path(env)
     phase_breakdown(env, ts, rep, rl_cfg)
     phase_small_agreement(dev)
+    del ts, rep
+    here = os.getcwd()
+    with tempfile.TemporaryDirectory() as workdir:
+        os.chdir(workdir)
+        try:
+            ts, rep, launches_cli = phase_cli(workdir)
+            phase_cli_breakdown(ts, rep)
+            launches_w256 = phase_cli_w256()
+        finally:
+            os.chdir(here)
+    phase_fast_off(dev)
+    by_path = dict(main=launches_main, cli=launches_cli, cli_w256=launches_w256)
+    for k in kernels:
+        k["launches"] = launches_cli[k["name"]]
+        k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
+        check(all(v > 0 for v in k["launches_by_path"].values()),
+              f"{k['name']} was not launched on every path: {k['launches_by_path']}")
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -23,7 +23,15 @@
 // row groups per block keep 32 warps on an SM although a block's shared
 // memory allows only two blocks there.  The heads are warp-shuffle dot
 // products.  No tensor cores yet (wgmma is later work).
-
+//
+// Widths above 192 (the CLI's default 256): W2 alone is 256 KB at width 256,
+// more than the 227 KB one block may take.  There the block stages W2 in
+// K-chunks of 64 input units (64 KB at width 256) for every tile and adds each
+// chunk's partial sums into the same registers before the next chunk is
+// staged; the thread layout stays, so width 256 takes the 1024 threads a block
+// may have.  The whole-W2 layout is kept wherever it fits.  One build serves
+// every width: the 1024-thread bound holds it to 64 registers, no spills,
+// which also lets two 512-thread blocks share an SM at width 128.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -32,15 +40,17 @@ namespace {
 constexpr int kRows = 32;           // rows per tile
 constexpr int kRowsPerThread = 8;   // rows of one row group
 constexpr int kGroups = kRows / kRowsPerThread;
-// threads per block = kGroups * width; W2 is staged whole in shared memory, and
-// 192 is the largest multiple of 32 whose block fits the 227 KB of one SM
-constexpr int kMaxWidth = 192;
+// threads per block = kGroups * width, at most 1024
+constexpr int kMaxWidth = 256;
+// W2 rows staged at a time when the whole of W2 does not fit
+constexpr int kChunk = 64;
 
 __device__ __forceinline__ float softplus(float x) {
   // jax.nn.softplus = logaddexp(x, 0)
   return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
 }
 
+// kc: rows of W2 held in shared memory at a time; kc == W stages it once
 __global__ void __launch_bounds__(kGroups * kMaxWidth) mlp_forward_kernel(
     const float* __restrict__ obs, const float* __restrict__ w1,
     const float* __restrict__ b1, const float* __restrict__ w2,
@@ -50,13 +60,13 @@ __global__ void __launch_bounds__(kGroups * kMaxWidth) mlp_forward_kernel(
     const float* __restrict__ bs, float* __restrict__ v_out,
     float* __restrict__ mu_out, float* __restrict__ sigma_out,
     int R, int D, int W, int A, float sigma_scale, float sigma_floor,
-    float sigma_max, int sigma_relative) {
+    float sigma_max, int sigma_relative, int kc) {
   extern __shared__ __align__(16) float smem[];
   const int H = 1 + 2 * A;  // head outputs per row: V, mu[A], raw sigma[A]
   float* h1 = smem;                    // kRows * W
   float* h2 = h1 + kRows * W;          // kRows * W
-  float* w2s = h2 + kRows * W;         // W * (W + 1), [i][j] = W2[j][i]
-  float* w1s = w2s + W * (W + 1);      // D * W,       [d][j] = W1[j][d]
+  float* w2s = h2 + kRows * W;         // kc * (W + 1), [i - k0][j] = W2[j][i]
+  float* w1s = w2s + kc * (W + 1);     // D * W,        [d][j] = W1[j][d]
   float* b1s = w1s + D * W;            // W
   float* b2s = b1s + W;                // W
   float* hs = b2s + W;                 // H * W, rows: wv, wm[A], ws[A]
@@ -69,10 +79,16 @@ __global__ void __launch_bounds__(kGroups * kMaxWidth) mlp_forward_kernel(
   const int warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
 
-  for (int e = tid; e < W * W; e += blockDim.x) {
-    const int j = e / W, i = e - j * W;
-    w2s[i * (W + 1) + j] = w2[e];
-  }
+  // rows k0 .. k0+n-1 of W2^T into w2s: coalesced reads along i, and bank
+  // (i + j) % 32 for the writes, since W is a multiple of 32
+  auto stage_w2 = [&](int k0, int n) {
+    for (int e = tid; e < n * W; e += blockDim.x) {
+      const int j = e / n, i = e - j * n;
+      w2s[i * (W + 1) + j] = w2[(long long)j * W + k0 + i];
+    }
+  };
+  const bool resident = kc == W;
+  if (resident) stage_w2(0, W);
   for (int e = tid; e < W * D; e += blockDim.x) {
     const int j = e / D, d = e - j * D;
     w1s[d * W + j] = w1[e];
@@ -115,18 +131,26 @@ __global__ void __launch_bounds__(kGroups * kMaxWidth) mlp_forward_kernel(
     float acc[kRowsPerThread];
 #pragma unroll
     for (int r = 0; r < kRowsPerThread; ++r) acc[r] = 0.f;
-    for (int i = 0; i < W; i += 4) {
-      const float c0 = w2s[(i + 0) * (W + 1) + j];
-      const float c1 = w2s[(i + 1) * (W + 1) + j];
-      const float c2 = w2s[(i + 2) * (W + 1) + j];
-      const float c3 = w2s[(i + 3) * (W + 1) + j];
+    for (int k0 = 0; k0 < W; k0 += kc) {
+      const int n = min(kc, W - k0);
+      if (!resident) {
+        __syncthreads();  // every thread is done with the previous chunk
+        stage_w2(k0, n);
+        __syncthreads();
+      }
+      for (int i = 0; i < n; i += 4) {
+        const float c0 = w2s[(i + 0) * (W + 1) + j];
+        const float c1 = w2s[(i + 1) * (W + 1) + j];
+        const float c2 = w2s[(i + 2) * (W + 1) + j];
+        const float c3 = w2s[(i + 3) * (W + 1) + j];
 #pragma unroll
-      for (int r = 0; r < kRowsPerThread; ++r) {
-        const float4 h = *reinterpret_cast<const float4*>(&h1[(r0 + r) * W + i]);
-        acc[r] = fmaf(h.x, c0, acc[r]);
-        acc[r] = fmaf(h.y, c1, acc[r]);
-        acc[r] = fmaf(h.z, c2, acc[r]);
-        acc[r] = fmaf(h.w, c3, acc[r]);
+        for (int r = 0; r < kRowsPerThread; ++r) {
+          const float4 h = *reinterpret_cast<const float4*>(&h1[(r0 + r) * W + k0 + i]);
+          acc[r] = fmaf(h.x, c0, acc[r]);
+          acc[r] = fmaf(h.y, c1, acc[r]);
+          acc[r] = fmaf(h.z, c2, acc[r]);
+          acc[r] = fmaf(h.w, c3, acc[r]);
+        }
       }
     }
 #pragma unroll
@@ -177,27 +201,35 @@ extern "C" int mlp_forward(
     return (int)cudaErrorInvalidValue;
   }
   const int H = 1 + 2 * A;
-  const size_t smem = sizeof(float) * ((size_t)2 * kRows * W + (size_t)W * (W + 1) +
-                                       (size_t)D * W + 2 * W + (size_t)H * W + H +
-                                       (size_t)kRows * D + (size_t)kRows * H);
-  cudaError_t err = cudaFuncSetAttribute(
-      mlp_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int device = 0, sms = 0, per_sm = 0;
-  err = cudaGetDevice(&device);
+  int device = 0, sms = 0, max_smem = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return (int)err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return (int)err;
+  auto smem_for = [&](int kc) {
+    return sizeof(float) * ((size_t)2 * kRows * W + (size_t)kc * (W + 1) + (size_t)D * W +
+                            2 * W + (size_t)H * W + H + (size_t)kRows * D + (size_t)kRows * H);
+  };
+  // the whole of W2 where it fits, else chunks of kChunk (or 32) of its rows
+  int kc = W;
+  if (smem_for(kc) > (size_t)max_smem) kc = W < kChunk ? W : kChunk;
+  if (smem_for(kc) > (size_t)max_smem) kc = 32;
+  const size_t smem = smem_for(kc);
+  if (smem > (size_t)max_smem) return (int)cudaErrorInvalidValue;
   const int threads = kGroups * W;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mlp_forward_kernel, threads,
-                                                      smem);
+  err = cudaFuncSetAttribute(mlp_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mlp_forward_kernel, threads, smem);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const int n_tiles = (R + kRows - 1) / kRows;
   const int blocks = n_tiles < sms * per_sm ? n_tiles : sms * per_sm;
   mlp_forward_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-      obs, w1, b1, w2, b2, wv, bv, wm, bm, ws, bs, v_out, mu_out, sigma_out,
-      R, D, W, A, sigma_scale, sigma_floor, sigma_max, sigma_relative);
+      obs, w1, b1, w2, b2, wv, bv, wm, bm, ws, bs, v_out, mu_out, sigma_out, R, D, W, A,
+      sigma_scale, sigma_floor, sigma_max, sigma_relative, kc);
   return (int)cudaGetLastError();
 }
 

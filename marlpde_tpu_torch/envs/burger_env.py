@@ -1,18 +1,24 @@
 """Burgers subgrid-closure environment, spectral-reward path (port of
-marlpde_tpu/envs/burger_env.py:43-138,152-154,221-309,325-366).
+marlpde_tpu/envs/burger_env.py:43-138,152-154,221-309,325-366,405-501).
 
 Parity target: burger_environment.py (episode protocol at :18-204) with the
-Burger solver (Burger.py).  This slice ports:
+Burger solver (Burger.py).  Ported:
 
   * the configuration, the DNS pool and the action basis;
   * the host float64 DNS pool build (numpy until the final transfer);
   * ``reset`` on the spectral branch: pick the DNS from the pool
     (episodeCount % ndns, :54-55), draw the random phase offset, and
-    transplant the IC by spectral restriction + phase shift (:109-119).
+    transplant the IC by spectral restriction + phase shift (:109-119);
+  * the general ``step``: n_intermediate solver sub-steps with the action
+    field held fixed, the spectral reward, blowup detection and
+    freeze-once-done.
 
-The episode step of the flagship path is the whole-batch
-``envs/burger_fast.step``; the general per-env ``step``, the MSE reward and
-the lockstep-DNS mode wait for a later slice (ROADMAP queue 1).
+The JAX package vmaps its per-env (reset, step) pair; here both are written
+over a leading env axis (B, ...).  The flagship path's step is the
+whole-batch ``envs/burger_fast.step`` on the ABCN op; this one runs the
+torch.fft solver and covers the configs that one does not (``fast='off'``,
+nunoise, dforce=False, ssmforce, a finite state bound).  The MSE and coupled
+rewards and the lockstep-DNS mode wait for ROADMAP item 12.
 """
 
 from __future__ import annotations
@@ -257,3 +263,65 @@ def _observe(cfg: BurgerEnvConfig, state: BurgerEnvState):
     return features.burger_features(
         cfg.version, cfg.num_agents, state.solver.u, state.u_prev,
         state.solver.v, cfg.dt, cfg.les_solver.grid.dx)
+
+
+def step(cfg: BurgerEnvConfig, pool: DnsPool, state: BurgerEnvState, actions):
+    """One macro-step of every env.  actions: (B, num_agents, actions_per_agent)
+    or (B, num_actions).
+
+    Returns (state, obs, reward (B, na), done (B,), info).  Envs already done
+    still step; their results are discarded by selection, never by a mask
+    product, since blown envs hold inf/NaN."""
+    if cfg.coupled or not cfg.spectral_reward:
+        raise NotImplementedError(f"[burger_env] the MSE and coupled rewards {_NOT_PORTED}")
+    dtype = state.solver.u.dtype
+    device = state.solver.u.device
+    lcfg = cfg.les_solver
+    dx = lcfg.grid.dx
+    g = cfg.grid_size
+    B = state.solver.u.shape[0]
+    basis = torch.as_tensor(action_basis(cfg), dtype=dtype, device=device)
+    action_field = actions.reshape(B, -1) @ basis                 # Burger.py:437,442
+
+    sol, ek_sum, u_prev = state.solver, state.ek_sum, state.u_prev
+    for _ in range(cfg.n_intermediate):
+        u_prev = sol.u
+        sol, _aux = burger.step(lcfg, sol, action_field)
+        ek_sum = ek_sum + spectral.energy_spectrum(sol.v, dx)
+
+    # cumulative-mean spectra at the current LES step (burger_environment.py:172-176);
+    # a frozen env's step counter can run past the table: clamp as a JAX gather does
+    count = (sol.ioutnum + 1).to(dtype)
+    sgs_ektt = ek_sum[:, 1: g // 2] / count[:, None]
+    t_idx = sol.ioutnum.clamp(max=pool.ek_ktt.shape[1] - 1)
+    dns_ektt = pool.ek_ktt[state.sidx, t_idx, 1: g // 2]
+    rel_err = torch.mean(((torch.abs(dns_ektt - sgs_ektt)) / dns_ektt) ** 2, dim=-1)
+    reward = (cfg.reward_factor * (state.prev_rel_err - rel_err))[:, None].expand(
+        B, cfg.num_agents)
+
+    obs_ok = torch.isfinite(sol.u).all(-1)
+    if np.isfinite(cfg.state_bound):
+        obs_ok = obs_ok & (sol.u.abs().amax(-1) <= cfg.state_bound)
+    blown = ~(obs_ok & torch.isfinite(reward).all(-1))
+    reward = torch.where(blown[:, None], torch.full_like(reward, cfg.truncation_penalty),
+                         reward)
+    macro = state.macro_step + 1
+    done = blown | (macro >= cfg.episode_length) | state.done
+
+    was = state.done
+
+    def keep(new, old):
+        return torch.where(was.reshape((-1,) + (1,) * (new.ndim - 1)), old, new)
+
+    sol = burger.BurgerState(**{f.name: keep(getattr(sol, f.name), getattr(state.solver, f.name))
+                                for f in dataclasses.fields(burger.BurgerState)})
+    zero = torch.zeros_like(reward)
+    new_state = BurgerEnvState(
+        solver=sol, u_prev=keep(u_prev, state.u_prev), sidx=state.sidx,
+        macro_step=keep(macro, state.macro_step), ek_sum=keep(ek_sum, state.ek_sum),
+        prev_rel_err=keep(rel_err, state.prev_rel_err), done=done,
+        cum_reward=state.cum_reward + torch.where(was[:, None], zero, reward))
+    reward = torch.where(was[:, None], zero, reward)
+    obs = _observe(cfg, new_state)
+    obs = torch.where(torch.isfinite(obs), obs, torch.zeros_like(obs))
+    return new_state, obs, reward, done, dict(blown=blown)

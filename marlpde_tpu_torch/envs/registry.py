@@ -1,10 +1,12 @@
 """Workload registry (port of marlpde_tpu/envs/registry.py:32-73,183).
 
-The port covers the whole-batch Burgers presets only: 'burger'
-(run-vracer-burger.py) and 'burger-marl' (run-vracer-burger-marl.py), on
-configs that the whole-batch env implements (``fast_burger_ok``).  Every
-other preset, and the general per-env rollout (``fast='off'``), raise
-NotImplementedError until their slice lands (ROADMAP queue 1).
+The port covers the Burgers presets 'burger' (run-vracer-burger.py) and
+'burger-marl' (run-vracer-burger-marl.py) on the spectral-reward ABCN
+configs: the whole-batch env where it implements the config
+(``fast_burger_ok``) and ``fast`` is not 'off', the general per-env env
+otherwise.  Every other preset, and the Burgers configs neither env takes
+(``general_burger_ok``), raise NotImplementedError until their slice lands
+(ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -31,34 +33,46 @@ def fast_burger_ok(cfg: burger_env.BurgerEnvConfig) -> bool:
             and not cfg.nunoise and np.isinf(cfg.state_bound))
 
 
+def general_burger_ok(cfg: burger_env.BurgerEnvConfig) -> bool:
+    """Does the port's general per-env env (burger_env.step) take this config?
+    The spectral-reward ABCN closure on a pool, without stochastic forcing or
+    the ssm/dsm closures (those, the MSE and coupled rewards and the other
+    schemes are ROADMAP item 12)."""
+    return (cfg.scheme == "abcn" and cfg.spectral_reward and cfg.dns_mode == "pool"
+            and not cfg.coupled and not (cfg.ssm or cfg.dsm or cfg.forcing))
+
+
 def make_burger_env(cfg: burger_env.BurgerEnvConfig = None, n_dns: int = 1,
                     pool=None, dtype=torch.float32, fast: str = "auto",
                     device=None, **overrides) -> Env:
-    """The whole-batch Burgers env on ``device``.  ``fast`` is kept for config
-    compatibility: 'auto' and 'pallas' both take the whole-batch env, whose
-    ABCN op launches the CUDA kernel on the card and runs its plain version on
-    the CPU; 'off' (the general per-env env) is not ported yet."""
+    """The Burgers env on ``device``.  ``fast`` picks the rollout backend for
+    configs the whole-batch env implements: 'auto' and 'pallas' attach the
+    whole-batch pair, whose ABCN op launches the CUDA kernel on the card and
+    runs its plain version on the CPU; 'off' keeps the general per-env env
+    (the torch.fft solver), as every other config does."""
     if cfg is None:
         cfg = burger_env.BurgerEnvConfig(**overrides)
     elif overrides:
         cfg = dataclasses.replace(cfg, **overrides)
-    if fast not in ("auto", "pallas"):
-        raise NotImplementedError(f"[registry] fast={fast!r}: the general per-env "
-                                  f"Burgers env {_NOT_PORTED}")
-    if not fast_burger_ok(cfg):
-        raise NotImplementedError(f"[registry] this Burgers configuration needs the "
-                                  f"general per-env env, which {_NOT_PORTED}: {cfg}")
+    if fast not in ("auto", "pallas", "off"):
+        raise ValueError(f"[registry] unknown fast={fast!r}")
+    if not general_burger_ok(cfg):
+        raise NotImplementedError(f"[registry] this Burgers configuration {_NOT_PORTED}: "
+                                  f"{cfg}")
     if pool is None:
         pool = burger_env.make_dns_pool(cfg, n_dns, dtype=dtype,
                                         device=resolve_device(device))
+    batch_reset = batch_step = None
+    if fast != "off" and fast_burger_ok(cfg):
+        batch_reset = partial(burger_fast.reset, cfg)
+        batch_step = partial(burger_fast.step, cfg)
     return Env(
         name="burger-marl" if cfg.num_agents > 1 else "burger", cfg=cfg,
-        batch_reset=partial(burger_fast.reset, cfg),
-        batch_step=partial(burger_fast.step, cfg),
+        reset=partial(burger_env.reset, cfg), step=partial(burger_env.step, cfg),
         obs_dim=cfg.obs_dim, num_agents=cfg.num_agents,
         act_dim=cfg.actions_per_agent, episode_length=cfg.episode_length,
         action_low=-5.0, action_high=5.0,   # run-vracer-burger.py:156-157
-        consts=pool)
+        consts=pool, batch_reset=batch_reset, batch_step=batch_step)
 
 
 MAKERS = {

@@ -1,10 +1,12 @@
 """Episode collection with the policy in the loop (port of
-marlpde_tpu/envs/rollout.py:21-122, whole-batch branch).
+marlpde_tpu/envs/rollout.py:21-144).
 
 The JAX macro-step ``lax.scan`` becomes a Python loop that writes each
 macro-step into preallocated (B, T, ...) tensors, the layout replay takes.
-Every macro-step makes one MLP-op call for all B*na agents and one ABCN-op
-call for all B envs.
+Every macro-step makes one MLP-op call for all B*na agents, then one env step
+for all B envs: the whole-batch pair when the env has one (one ABCN-op call),
+else the per-env pair, which the port writes over a leading env axis in place
+of JAX's vmap.
 """
 
 from __future__ import annotations
@@ -19,16 +21,17 @@ from marlpde_tpu_torch.rl import vracer
 
 @dataclasses.dataclass(frozen=True)
 class Env:
-    """Uniform functional env interface over the whole-batch env modules.
+    """Uniform functional env interface over the concrete env modules.
 
-    ``consts`` holds large runtime data (the DNS pool).  The per-env
-    ``reset``/``step`` of the JAX Env wait for a later slice: the port rolls
-    out through the whole-batch pair only."""
+    ``reset``/``step`` are the env's general pair, ``batch_reset``/
+    ``batch_step`` the optional whole-batch fast pair (envs/burger_fast.py);
+    both pairs take and return a leading env axis.  ``consts`` holds large
+    runtime data (the DNS pool)."""
 
     name: str
     cfg: Any
-    batch_reset: Callable     # (consts, generator, counts) -> (state, obs)
-    batch_step: Callable      # (consts, state, actions) -> (state, obs, reward, done, info)
+    reset: Callable           # (consts, generator, counts) -> (state, obs)
+    step: Callable            # (consts, state, actions) -> (state, obs, reward, done, info)
     obs_dim: int
     num_agents: int
     act_dim: int              # actions per agent
@@ -36,6 +39,16 @@ class Env:
     action_low: float
     action_high: float
     consts: Any = ()
+    batch_reset: Callable | None = None
+    batch_step: Callable | None = None
+
+    @property
+    def whole_batch(self) -> bool:
+        return self.batch_reset is not None and self.batch_step is not None
+
+    def reset_batch(self, consts, generator, counts):
+        """Reset through the whole-batch pair when there is one."""
+        return (self.batch_reset if self.whole_batch else self.reset)(consts, generator, counts)
 
 
 def collect_episodes(env: Env, rl_cfg, ts, generator, batch_size: int,
@@ -45,12 +58,13 @@ def collect_episodes(env: Env, rl_cfg, ts, generator, batch_size: int,
 
     Returns (traj, final_state): traj holds (B, T, na, ...) tensors obs,
     actions, mu, sigma, rewards, and mask (B, T), truncated (B,), final_obs
-    (B, na, obs_dim) — ready for replay.add_episodes.  ``generator`` draws
-    the reset offsets and the action noise."""
+    (B, na, obs_dim) — ready for the replays.  ``generator`` draws the reset
+    offsets and the action noise."""
     consts = env.consts if consts is None else consts
     device = ts.beta.device
     counts = episode_base + torch.arange(batch_size, device=device)
-    state, obs = env.batch_reset(consts, generator, counts)
+    step = env.batch_step if env.whole_batch else env.step
+    state, obs = env.reset_batch(consts, generator, counts)
     B, T, na = batch_size, env.episode_length, env.num_agents
     kw = dict(dtype=obs.dtype, device=obs.device)
     traj = dict(
@@ -68,7 +82,7 @@ def collect_episodes(env: Env, rl_cfg, ts, generator, batch_size: int,
         else:
             a, mu, sigma = vracer.act(rl_cfg, ts, obs, generator)
         traj["mask"][:, t] = ~state.done
-        state, obs_next, rew, _, info = env.batch_step(consts, state, a)
+        state, obs_next, rew, _, info = step(consts, state, a)
         traj["obs"][:, t] = obs
         traj["actions"][:, t] = a
         traj["mu"][:, t] = mu
@@ -83,3 +97,24 @@ def collect_episodes(env: Env, rl_cfg, ts, generator, batch_size: int,
     traj["truncated"] = blown.any(dim=1)
     traj["final_obs"] = obs
     return traj, state
+
+
+def zero_action_episode(env: Env, generator, batch_size: int = 1, episode_base: int = 0,
+                        consts=None):
+    """The reference's korali-free smoke loop (tests/burger/loop.py:99-135): a
+    full episode of zero actions through the general pair; returns
+    (traj dict of (B, T, ...) obs, rewards, done; final states)."""
+    consts = env.consts if consts is None else consts
+    device = consts.uu.device if hasattr(consts, "uu") else None
+    counts = episode_base + torch.arange(batch_size, device=device)
+    state, obs = env.reset(consts, generator, counts)
+    zero = torch.zeros((batch_size, env.num_agents, env.act_dim), dtype=obs.dtype,
+                       device=obs.device)
+    out = dict(obs=[], rewards=[], done=[])
+    for _ in range(env.episode_length):
+        state, obs_next, rew, done, _info = env.step(consts, state, zero)
+        out["obs"].append(obs)
+        out["rewards"].append(rew)
+        out["done"].append(done)
+        obs = obs_next
+    return {k: torch.stack(v, dim=1) for k, v in out.items()}, state

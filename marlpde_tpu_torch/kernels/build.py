@@ -9,7 +9,8 @@ interface, bound with ctypes:
 The library is built at first use and cached under ``build/`` at the root of
 the checkout, keyed by a hash of the source and the flags, so a fresh checkout
 builds everything on its first call and an edited source is rebuilt.  Nothing
-is compiled while a module is imported.
+is compiled while a module is imported.  ``build_all`` starts one nvcc per
+missing source at once, so a cold checkout pays for the slowest source only.
 """
 
 from __future__ import annotations
@@ -51,23 +52,44 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
+def _compile(names) -> None:
+    """Start one nvcc for each source whose cached library is missing, all at
+    once, then wait for every one of them.  The caller holds ``_lock``."""
+    jobs = []
+    for name in names:
+        so = library_path(name)
+        if so.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        jobs.append((name, so, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for name, so, tmp, proc in jobs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{err}")
+            continue
+        build_logs[name] = err
+        os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def build_all(names) -> None:
+    """Build the missing libraries of ``csrc/<name>.cu`` for every name, in
+    parallel (one nvcc each); ``load`` then only loads them."""
+    with _lock:
+        _compile(names)
+
+
 def load(name: str) -> ctypes.CDLL:
     """Build (if its cached library is missing) and load ``csrc/<name>.cu``."""
     with _lock:
         if name in _loaded:
             return _loaded[name]
-        so = library_path(name)
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {name}.cu "
-                                   f"(exit {res.returncode}):\n{res.stderr}")
-            build_logs[name] = res.stderr
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
+        _compile([name])
+        lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
         return lib
-

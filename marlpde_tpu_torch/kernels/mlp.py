@@ -23,7 +23,7 @@ from marlpde_tpu_torch.kernels import build
 # is launched
 launches = 0
 
-MAX_WIDTH = 192     # csrc/mlp.cu kMaxWidth: W2 staged whole in one SM's shared memory
+MAX_WIDTH = 256     # csrc/mlp.cu kMaxWidth: 4 * width threads, at most 1024 a block
 
 
 @lru_cache(maxsize=None)

@@ -1,5 +1,5 @@
-"""V-RACER with REFER, episode-minibatch mode (port of
-marlpde_tpu/rl/vracer.py:59-467,505-508,669-688).
+"""V-RACER with REFER, both minibatch modes (port of
+marlpde_tpu/rl/vracer.py:59-688).
 
 Algorithm per Novati & Koumoutsakos, "Remember and Forget for Experience
 Replay" (ICML 2019), with the configuration surface of the reference run
@@ -10,12 +10,19 @@ attraction for far-policy ones; adaptive beta toward the off-policy target;
 cutoff annealing.  Blowup containment and every documented deviation from
 korali are as in the JAX package (see its module docstring).
 
+The korali-faithful path is ``minibatch_mode="experience"`` (the CLI
+default): uniform-experience minibatches over the flat REFER replay
+(replay_flat) with lazily refreshed metadata, whole-episode retrace refresh
+per update, the replay-wide off-policy fraction driving beta at the annealed
+learning rate, and second-moment reward rescaling over the live buffer.
+
 In PyTorch's idiom the train state holds the ``VracerNet`` module and its
-``torch.optim.Adam``; ``update`` steps them in place.  The acting path
-(``policy_apply``, ``act``, ``act_deterministic``) goes through the MLP op
-(kernels/mlp.py) without autograd; the losses differentiate the module.
-The korali-style experience mode (``minibatch_mode='experience'``) waits for
-a later slice (ROADMAP queue 1).
+``torch.optim.Adam``; ``update`` and ``update_experience`` step them, and the
+replay, in place.  Every forward that needs no gradient (acting, the
+insert-time V(s), the V(s_T) bootstraps) goes through the MLP op
+(kernels/mlp.py); the losses differentiate the module.  The update counter
+and the annealed cutoff are decided on the host, so an update makes no
+device readback.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ import torch
 
 from marlpde_tpu_torch.kernels import mlp
 from marlpde_tpu_torch.rl import distributions as D
-from marlpde_tpu_torch.rl import networks, running_stats
+from marlpde_tpu_torch.rl import networks, replay_flat, running_stats
 
 
 @dataclasses.dataclass(frozen=True, eq=True)
@@ -86,6 +93,12 @@ class VracerConfig:
     @property
     def replay_start_episodes(self) -> int:
         return max(self.replay_start_experiences // self.episode_length, 1)
+
+    @property
+    def flat_episode_capacity(self) -> int:
+        if self.replay_episode_capacity is not None:
+            return self.replay_episode_capacity
+        return max(self.replay_max_experiences // 4, 1024)
 
 
 @dataclasses.dataclass
@@ -326,6 +339,157 @@ def _loss(cfg: VracerConfig, net: networks.VracerNet, ts: TrainState, batch, cut
                    mean_sigma=sigma.mean(), mean_mu=mu.mean(),
                    mean_V=torch.sum(w * V) / denom)
     return loss, {k: v.detach() for k, v in metrics.items()}
+
+
+def _sanitized_final_V(cfg: VracerConfig, ts: TrainState, final_obs):
+    """V(s_T) for the truncated-state bootstrap, through the MLP op; the
+    pre-blowup observations can be NaN or huge, so sanitize first."""
+    fin = torch.nan_to_num(final_obs, nan=0.0, posinf=cfg.obs_stat_bound,
+                           neginf=-cfg.obs_stat_bound)
+    return policy_apply(cfg, ts, fin)[0]
+
+
+def _rescale_rewards(cfg: VracerConfig, rewards, scale):
+    """Floor, divide by the reward-rescaling sigma, bound in scaled units, and
+    pool to the team mean under Cooperation (vracer.py:479-487)."""
+    rewards = torch.clamp(rewards, min=cfg.reward_floor) / scale
+    rewards = torch.clamp(rewards, min=cfg.scaled_reward_floor)
+    if cfg.multi_agent_relationship == "cooperation":
+        rewards = rewards.mean(-1, keepdim=True).expand(rewards.shape)
+    return rewards
+
+
+def _joint_rho(cfg: VracerConfig, actions, mu, sigma, mu_b, sigma_b):
+    """Importance weight pi_cur/pi_behavior per (.., na) and log pi_cur; with
+    Multi Agent Correlation the product over agents is shared."""
+    logp = D.joint_log_prob(actions, mu, sigma, cfg.action_low, cfg.action_high)
+    logp_b = D.joint_log_prob(actions, mu_b, sigma_b, cfg.action_low, cfg.action_high)
+    log_ratio = logp - logp_b
+    if cfg.multi_agent_correlation and cfg.num_agents > 1:
+        log_ratio = log_ratio.sum(-1, keepdim=True).expand(log_ratio.shape)
+    log_ratio = torch.clamp(log_ratio * _rho_temper(cfg), -20.0, 20.0)
+    return torch.exp(log_ratio), logp
+
+
+def _insert_scale(cfg: VracerConfig, ts: TrainState, frep, rewards=None, mask=None):
+    """The reward-rescaling sigma: 1 without rescaling, the cumulative
+    second moment, or korali's live-buffer one (with a fresh batch folded in
+    when ``rewards`` is given)."""
+    if not cfg.reward_rescaling:
+        return torch.ones((), dtype=ts.beta.dtype, device=ts.beta.device)
+    if cfg.reward_scale_source == "cumulative":
+        return running_stats.second_moment(ts.rew_stats)
+    return replay_flat.scale_from_sums(*replay_flat.reward_scale_sums(
+        frep, cfg.reward_floor, extra=rewards, extra_mask=mask))
+
+
+@torch.no_grad()
+def flat_insert(cfg: VracerConfig, ts: TrainState, frep, batch):
+    """korali processEpisode: compute the entering episodes' V(s), on-policy
+    (rho=1) retrace values in current scaled-reward units and the
+    truncated-state bootstrap V(s_T), then append the live steps to the flat
+    ring (in place).  batch: episode tensors (B, T, na, ...) from
+    collect_episodes.  With the cumulative scale, ``observe_episodes`` must
+    already have folded these episodes in, as both trainer paths do."""
+    V = policy_apply(cfg, ts, batch["obs"])[0]                       # (B, T, na)
+    scale = _insert_scale(cfg, ts, frep, batch["rewards"], batch["mask"])
+    rewards = _rescale_rewards(cfg, batch["rewards"], scale)
+    boot = (_sanitized_final_V(cfg, ts, batch["final_obs"])
+            * batch["truncated"].to(V.dtype)[..., None])
+    mask = batch["mask"][..., None].expand(rewards.shape)
+    vtg, _ = _vtrace(V.movedim(1, -1), rewards.movedim(1, -1),
+                     torch.ones_like(rewards.movedim(1, -1)), mask.movedim(1, -1),
+                     cfg.gamma, bootstrap=boot)
+    return replay_flat.add_episodes(frep, batch, sv=V, vtg=vtg.movedim(-1, 1), boot=boot)
+
+
+def _loss_experience(cfg: VracerConfig, ts: TrainState, out, rows, vtg_next, scale, cutoff):
+    """korali VRACER loss over n iid sampled experiences (vracer.py:550-580).
+    ``out`` = (V, mu, sigma), the module's forward on the rows' prepared
+    observations, still attached to the graph: the one-step value target runs
+    through the just-refreshed retrace value of the successor, and the REFER
+    near/far split weighs the policy terms.  ``cutoff`` is a float32 value,
+    and 1/cutoff is taken in float32 too, as JAX does."""
+    V, mu, sigma = out                                                # (n, na[, A])
+    rewards = _rescale_rewards(cfg, rows["rewards"], scale)
+    rho, logp = _joint_rho(cfg, rows["actions"], mu, sigma, rows["mu"], rows["sigma"])
+    near = (rho > float(np.float32(1.0) / np.float32(cutoff))) & (rho < cutoff)
+
+    rho_bar = torch.clamp(rho, max=1.0).detach()
+    Vsg = V.detach()
+    td = rewards + cfg.gamma * vtg_next - Vsg
+    vtarget = Vsg + rho_bar * td
+    adv = td
+
+    n_tot = float(rho.numel())
+    v_loss = 0.5 * torch.sum((V - vtarget) ** 2) / n_tot
+    pg_w = (torch.clamp(rho, max=cutoff) * adv * near).detach()
+    pg_loss = -torch.sum(pg_w * logp) / n_tot
+    kl = _trust_kl(cfg, rows["mu"], rows["sigma"], mu, sigma)
+    far = (~near).to(kl.dtype)
+    kl_loss = torch.sum(far * kl) / n_tot
+
+    loss = cfg.value_coef * v_loss + ts.beta * pg_loss + (1.0 - ts.beta) * kl_loss
+    metrics = dict(loss=loss, v_loss=v_loss, pg_loss=pg_loss, kl_loss=kl_loss,
+                   frac_far=far.mean(), mean_rho=rho.mean(), mean_sigma=sigma.mean(),
+                   mean_mu=mu.mean(), mean_V=V.mean())
+    return loss, {k: v.detach() for k, v in metrics.items()}
+
+
+def _annealed(cfg: VracerConfig, n_updates: int):
+    """1 + annealing_rate * n in float32, as the JAX package computes it from
+    its int32 counter; the cutoff c0 / that, also in float32."""
+    den = np.float32(1.0) + np.float32(cfg.annealing_rate) * np.float32(n_updates)
+    return den, np.float32(cfg.cutoff_scale) / den
+
+
+def update_experience(cfg: VracerConfig, ts: TrainState, frep, generator,
+                      mini_batch: int | None = None):
+    """One korali-faithful VRACER update on the flat experience replay
+    (vracer.py:583-666, one device): sample ``mini_batch_size`` experiences
+    uniformly; forward the current policy on them and refresh their stored
+    metadata and the bootstraps of the touched episodes; recompute the retrace
+    values of those episodes' whole chains; take the gradient step with the
+    refreshed successor values; anneal beta against the replay-wide
+    off-policy fraction at the annealed learning rate, clipped to [0, 1].
+
+    The metadata refresh evaluates the same parameters on the same rows as the
+    loss, so it takes the loss forward's detached outputs instead of a second
+    forward (equal in exact arithmetic).  Returns (ts, frep, metrics); the
+    module, the optimizer state and the replay change in place."""
+    den, cutoff32 = _annealed(cfg, ts.n_updates)
+    cutoff = float(cutoff32)
+    inv_cutoff = float(np.float32(1.0) / cutoff32)
+    g = replay_flat.sample_ids(frep, generator, mini_batch or cfg.mini_batch_size)
+    rows = replay_flat.gather(frep, g)
+    scale = _insert_scale(cfg, ts, frep)
+
+    ts.opt.zero_grad(set_to_none=True)
+    out = ts.net(_prep_obs(cfg, ts, rows["obs"]))                    # (n, na[, A])
+    V, mu, sigma = (t.detach() for t in out)
+    rho_new, _ = _joint_rho(cfg, rows["actions"], mu, sigma, rows["mu"], rows["sigma"])
+    off_new = ~((rho_new > inv_cutoff) & (rho_new < cutoff))
+    boot_new = (_sanitized_final_V(cfg, ts, rows["fin_obs"])
+                * rows["truncated"].to(V.dtype)[..., None])
+    replay_flat.refresh_metadata(frep, g, V, rho_new, off_new, boot_new)
+    _, vtg_next = replay_flat.refresh_retrace(
+        frep, g, cfg.episode_length, cfg.gamma, scale, cfg.reward_floor,
+        scaled_floor=cfg.scaled_reward_floor)
+
+    loss, metrics = _loss_experience(cfg, ts, out, rows, vtg_next, scale, cutoff)
+    loss.backward()
+    clip_by_global_norm([p.grad for p in ts.net.parameters()], cfg.max_grad_norm)
+    ts.opt.step()
+
+    frac_off = replay_flat.off_policy_fraction(frep)
+    bdt = np.float64 if ts.beta.dtype == torch.float64 else np.float32
+    lr_t = bdt(cfg.lr) / bdt(den)
+    keep = float(bdt(1.0) - lr_t)
+    beta = torch.where(frac_off > cfg.offpolicy_target, keep * ts.beta,
+                       keep * ts.beta + float(lr_t))
+    beta = torch.clamp(beta, 0.0, 1.0)
+    metrics.update(beta=beta, cutoff=cutoff, frac_off_replay=frac_off, rew_scale=scale)
+    return dataclasses.replace(ts, beta=beta, n_updates=ts.n_updates + 1), frep, metrics
 
 
 @torch.no_grad()

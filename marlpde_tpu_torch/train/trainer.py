@@ -1,19 +1,30 @@
 """Training orchestration: generations of collection + REFER updates (port of
-marlpde_tpu/train/trainer.py:35-180,183-489, episode-minibatch mode).
+marlpde_tpu/train/trainer.py:35-502).
 
-One generation collects ``num_envs`` episodes, inserts them into the episode
-replay, updates the normalizers and, once the replay holds
-``replay_start_episodes``, runs ``updates_per_generation`` VRACER updates —
-the program the JAX package fuses into one dispatch
-(``build_fused_generation``).  PyTorch runs it eagerly; the two branches that
-JAX takes with ``lax.cond`` are decided on the host: whether updates run (the
-replay fill is a host int) and which winsorization reference the reward
-statistic uses (one scalar readback, in vracer.observe_episodes).
+korali's generation loop (Episodes Per Generation = 10, run-vracer-burger.py:128)
+becomes: collect ``num_envs`` episodes, update the normalizers and insert them
+into the replay, then run gradient updates at korali's `Experiences Between
+Policy Updates` economics.  Both minibatch modes are ported: episode mode
+(whole-episode minibatches on the episode ring) and the korali-faithful
+experience mode (uniform experiences on the flat REFER replay, the CLI
+default).
+
+PyTorch runs eagerly, so the JAX package's fused and unfused paths are one
+generation loop here: ``train`` runs the static update count of
+``updates_per_generation`` with padded experience accounting, or korali's
+real-experience ledger with ``count_real_experiences``, and adds testing,
+checkpoints and the decay diagnostics.  ``build_fused_generation`` keeps the
+JAX name for one such generation at the static count.  One
+``torch.Generator`` on the env's device draws the initial weights, the reset
+offsets, the action noise and every minibatch.  Counters that decide control
+flow (replay fill, update counts, the ledger) are host ints.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import time
 from typing import Optional
 
@@ -23,15 +34,15 @@ import torch
 from marlpde_tpu_torch import NOT_PORTED as _NOT_PORTED
 from marlpde_tpu_torch.envs.rollout import Env, collect_episodes
 from marlpde_tpu_torch.rl import replay as replay_mod
-from marlpde_tpu_torch.rl import running_stats, vracer
+from marlpde_tpu_torch.rl import replay_flat, running_stats, vracer
+from marlpde_tpu_torch.utils import checkpoint as ckpt
+from marlpde_tpu_torch.utils.profiling import Throughput
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
-    """Fields and defaults as marlpde_tpu/train/trainer.py:35-80.  ``fused``
-    chooses nothing in the port: the eager generation is the same either way.
-    Checkpointing, episode saving, testing, decay diagnostics and real
-    experience counting raise NotImplementedError in ``train``."""
+    """Fields, defaults and meaning as marlpde_tpu/train/trainer.py:35-80.
+    ``save_episodes_dir`` raises NotImplementedError in ``train``."""
 
     num_envs: int = 16                 # episodes per generation
     max_experiences: float = 5e5       # korali Termination Criteria (run-vracer-burger.py:195)
@@ -39,15 +50,23 @@ class TrainerConfig:
     max_updates_per_gen: int = 200
     seed: int = 42
     log_every: int = 1
-    testing_frequency: int = 0
+    testing_frequency: int = 0         # generations between deterministic evals (0 = off)
     testing_episodes: int = 8
     save_episodes_dir: Optional[str] = None
     save_episodes_threshold: float = -np.inf
+    # korali File Output (run-vracer-burger.py:198-201): periodic checkpoints
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 25
     serialize_replay: bool = False
+    # the JAX package's one-program generation; eager PyTorch runs the same
+    # loop either way, so only run.py reads it (its default real-experience
+    # accounting is for the unfused path)
     fused: bool = False
+    # per-generation probe of the policy on a fixed batch of initial states
+    # into history["diag"]
     decay_diagnostics: bool = False
+    # korali's experience accounting: only live env-steps count toward Max
+    # Experiences, the replay-start gate and the update ledger
     count_real_experiences: bool = False
 
 
@@ -59,20 +78,20 @@ def default_rl_config(env: Env, **overrides) -> vracer.VracerConfig:
     return vracer.VracerConfig(**kw)
 
 
-def _check_episode_mode(rl_cfg: vracer.VracerConfig):
-    if rl_cfg.minibatch_mode != "episode":
-        raise NotImplementedError(f"[trainer] minibatch_mode={rl_cfg.minibatch_mode!r} "
-                                  f"{_NOT_PORTED}")
-
-
 def _device_dtype(env: Env):
     return env.consts.uu.device, env.consts.uu.dtype
 
 
 def make_replay(env: Env, rl_cfg: vracer.VracerConfig):
-    """The episode-slot ring of episode minibatches, on the env's device."""
-    _check_episode_mode(rl_cfg)
+    """The trainer's replay layout, on the env's device (also the template a
+    checkpointed replay loads into): the episode-slot ring for episode
+    minibatches, the flat experience ring with korali's REFER metadata for
+    experience minibatches."""
     device, dtype = _device_dtype(env)
+    if rl_cfg.minibatch_mode == "experience":
+        return replay_flat.init_flat(rl_cfg.replay_max_experiences, rl_cfg.flat_episode_capacity,
+                                     env.num_agents, env.obs_dim, env.act_dim,
+                                     dtype=dtype, device=device)
     return replay_mod.init(rl_cfg.replay_capacity_episodes, env.episode_length,
                            env.num_agents, env.obs_dim, env.act_dim,
                            dtype=dtype, device=device)
@@ -90,30 +109,57 @@ def updates_per_generation(rl_cfg: vracer.VracerConfig, tc: TrainerConfig,
                    max(1, tc.num_envs * T * tc.reuse_ratio / exp_per_update)))
 
 
+def insert_generation(rl_cfg, ts, rep, traj):
+    """Normalizers and replay insert, in the JAX order: experience mode
+    observes first (its insert-time retrace values use the updated scale),
+    episode mode inserts first."""
+    if rl_cfg.minibatch_mode == "experience":
+        ts = vracer.observe_episodes(rl_cfg, ts, traj)
+        rep = vracer.flat_insert(rl_cfg, ts, rep, traj)
+    else:
+        rep = replay_mod.add_episodes(rep, traj)
+        ts = vracer.observe_episodes(rl_cfg, ts, traj)
+    return ts, rep
+
+
+def _updates_started(rl_cfg, rep) -> bool:
+    if rl_cfg.minibatch_mode == "experience":
+        return rep.cursor >= rl_cfg.replay_start_experiences
+    return rep.filled >= rl_cfg.replay_start_episodes
+
+
+def run_updates(rl_cfg, ts, rep, generator, n: int):
+    """``n`` sequential updates from ``generator``; returns (ts, rep, the last
+    update's metrics, {} when n is 0)."""
+    metrics = {}
+    for _ in range(n):
+        if rl_cfg.minibatch_mode == "experience":
+            ts, rep, metrics = vracer.update_experience(rl_cfg, ts, rep, generator)
+        else:
+            batch = replay_mod.sample_episodes(rep, generator, rl_cfg.mini_batch_episodes)
+            ts, metrics = vracer.update(rl_cfg, ts, batch)
+    return ts, rep, metrics
+
+
 def build_fused_generation(env: Env, rl_cfg: vracer.VracerConfig,
                            tc: TrainerConfig, upd_per_gen: int):
-    """One whole training generation (collect + replay insert + normalizer
-    update + all gradient updates), as ``trainer.train`` runs it.
+    """One whole training generation (collect + normalizer update + replay
+    insert + all gradient updates) at the static count ``upd_per_gen``: the
+    program the JAX package fuses, and what ``train`` runs a generation as
+    without real-experience accounting.
 
     Returns ``fused_generation(ts, rep, generator, episode_base, consts) ->
     (ts, rep, traj, final, metrics, stats)``; ``metrics`` are the last
     update's (empty when no update ran) and ``stats`` hold host numbers."""
-    _check_episode_mode(rl_cfg)
     if tc.save_episodes_dir is not None:
         raise NotImplementedError(f"[trainer] save_episodes_dir {_NOT_PORTED}")
 
     def fused_generation(ts, rep, generator, episode_base, consts):
         traj, final = collect_episodes(env, rl_cfg, ts, generator, tc.num_envs,
                                        episode_base, consts=consts)
-        rep = replay_mod.add_episodes(rep, traj)
-        ts = vracer.observe_episodes(rl_cfg, ts, traj)
-        did = rep.filled >= rl_cfg.replay_start_episodes
-        metrics = {}
-        if did:
-            for _ in range(upd_per_gen):
-                batch = replay_mod.sample_episodes(rep, generator,
-                                                   rl_cfg.mini_batch_episodes)
-                ts, metrics = vracer.update(rl_cfg, ts, batch)
+        ts, rep = insert_generation(rl_cfg, ts, rep, traj)
+        did = _updates_started(rl_cfg, rep)
+        ts, rep, metrics = run_updates(rl_cfg, ts, rep, generator, upd_per_gen if did else 0)
         stats = dict(
             mean_return=float(final.cum_reward.reshape(tc.num_envs, -1).mean()),
             ep_len=float(traj["mask"].sum(1).mean()),
@@ -125,57 +171,181 @@ def build_fused_generation(env: Env, rl_cfg: vracer.VracerConfig,
     return fused_generation
 
 
+def _n_target(rl_cfg, tc, rep, T, real_in_replay, gen_exp, updates_done, upd_per_gen):
+    """Updates this generation runs (trainer.py:349-373).
+    With real-experience accounting in experience mode this is korali's exact
+    ledger: the cumulative target (experienceCount - startSize) / Experiences
+    Between Policy Updates, less the updates already taken, capped by
+    max_updates_per_gen."""
+    exp_mode = rl_cfg.minibatch_mode == "experience"
+    if not tc.count_real_experiences:
+        return upd_per_gen if _updates_started(rl_cfg, rep) else 0
+    if real_in_replay < rl_cfg.replay_start_experiences:
+        return 0
+    if exp_mode:
+        target_total = int(max(0.0, (real_in_replay - rl_cfg.replay_start_experiences)
+                               / rl_cfg.experiences_between_updates))
+        return min(tc.max_updates_per_gen, max(0, target_total - updates_done))
+    exp_per_update = rl_cfg.mini_batch_episodes * T
+    return int(min(tc.max_updates_per_gen,
+                   max(0.0, gen_exp * tc.reuse_ratio / exp_per_update)))
+
+
+def _save_checkpoint(tc, ts, history, rep, generator, gen, total_exp, episode_base,
+                     real_in_replay, rl_cfg):
+    ckpt.save_train_state(tc.checkpoint_dir, ts, history)
+    ckpt.save_meta(tc.checkpoint_dir, generator, gen, total_exp, episode_base,
+                   real_in_replay=real_in_replay, rl_cfg=rl_cfg)
+    if tc.serialize_replay:
+        ckpt.save_replay(tc.checkpoint_dir, rep)
+
+
 def train(env: Env, rl_cfg: Optional[vracer.VracerConfig] = None,
           tc: TrainerConfig = TrainerConfig(), verbose: bool = True,
-          callback=None):
+          callback=None, init_ts=None, init_history=None, init_replay=None,
+          init_generator_state=None, init_counters: Optional[dict] = None):
     """Run training; returns (train_state, replay, history dict).
 
     The generator seeded with ``tc.seed`` on the env's device draws the
-    initial weights, the reset offsets, the action noise and the minibatch
-    indices.  ``callback(gen, ts, rep, history)`` runs after each generation."""
+    initial weights (unless ``init_ts`` is given), the reset offsets, the
+    action noise and the minibatches.  Resume (korali's e.loadState):
+    ``init_ts``/``init_history`` restore the learner and the curves,
+    ``init_replay`` the buffer, ``init_generator_state``/``init_counters``
+    (from checkpoint.load_meta) the stream and the gen / total_exp /
+    episode_base / real_in_replay counters, so a resumed run continues
+    bitwise.  ``callback(gen, ts, rep, history)`` runs after each generation."""
     rl_cfg = rl_cfg or default_rl_config(env)
-    for field, off in (("checkpoint_dir", None), ("save_episodes_dir", None),
-                       ("testing_frequency", 0), ("decay_diagnostics", False),
-                       ("count_real_experiences", False)):
-        if getattr(tc, field) != off:
-            raise NotImplementedError(f"[trainer] TrainerConfig.{field} {_NOT_PORTED}")
+    if tc.save_episodes_dir is not None:
+        raise NotImplementedError(f"[trainer] TrainerConfig.save_episodes_dir {_NOT_PORTED}")
     device, dtype = _device_dtype(env)
     generator = torch.Generator(device=device)
     generator.manual_seed(tc.seed)
-    ts = vracer.init_train(rl_cfg, generator, dtype=dtype, device=device)
-    rep = make_replay(env, rl_cfg)
+    ts = (vracer.init_train(rl_cfg, generator, dtype=dtype, device=device)
+          if init_ts is None else init_ts)
+    if init_generator_state is not None:
+        generator.set_state(init_generator_state)
+    rep = init_replay if init_replay is not None else make_replay(env, rl_cfg)
+    exp_mode = rl_cfg.minibatch_mode == "experience"
+
+    throughput = Throughput()
+    history = init_history if init_history else dict(
+        gen=[], experiences=[], mean_return=[], mean_ep_len=[], updates=[], metrics=[],
+        test_return=[], wall_time=[], env_steps_per_s=[], blowups=[], rew_scale=[])
+    for key in ("env_steps_per_s", "blowups", "rew_scale"):
+        history.setdefault(key, [])
+    if init_counters is not None:
+        gen = init_counters["gen"]
+        total_exp = init_counters["total_exp"]
+        episode_base = init_counters["episode_base"]
+    else:
+        total_exp = history["experiences"][-1] if history.get("experiences") else 0
+        gen = history["gen"][-1] if history.get("gen") else 0
+        episode_base = gen * tc.num_envs
+    updates_done = int(sum(history.get("updates") or [0]))
+    best_test = max(history.get("test_return") or [-np.inf])
     T = env.episode_length
     upd_per_gen = updates_per_generation(rl_cfg, tc, T)
-    generation = build_fused_generation(env, rl_cfg, tc, upd_per_gen)
+    real_mode = tc.count_real_experiences
+    # cumulative live experiences inserted (korali's _experienceCount): the
+    # replay-start gate and the update ledger; restored on resume, else the
+    # ledger would take no updates until the run re-collects what it had
+    if init_counters is not None and init_counters.get("real_in_replay") is not None:
+        real_in_replay = int(init_counters["real_in_replay"])
+    elif real_mode and total_exp:
+        real_in_replay = int(total_exp)
+    else:
+        real_in_replay = 0
 
-    history = dict(gen=[], experiences=[], mean_return=[], mean_ep_len=[],
-                   updates=[], metrics=[], test_return=[], wall_time=[],
-                   env_steps_per_s=[], blowups=[], rew_scale=[])
-    gen = total_exp = episode_base = 0
+    prev_probe_mu = init_probe_mu = None
+    if tc.decay_diagnostics:
+        history.setdefault("diag", [])
+        n_probe = 32
+        probe_gen = torch.Generator(device=device).manual_seed(tc.seed + 777)
+        _, probe_obs = env.reset_batch(env.consts, probe_gen,
+                                       torch.arange(n_probe, device=device))
+
     t0 = time.time()
     while total_exp < tc.max_experiences:
-        t_gen = time.perf_counter()
-        ts, rep, traj, final, metrics, stats = generation(
-            ts, rep, generator, episode_base, env.consts)
+        traj, final = collect_episodes(env, rl_cfg, ts, generator, tc.num_envs, episode_base)
+        ts, rep = insert_generation(rl_cfg, ts, rep, traj)
         episode_base += tc.num_envs
-        gen_exp = tc.num_envs * T
+        if real_mode:
+            gen_exp = int(traj["mask"].sum())
+            real_in_replay += gen_exp
+        else:
+            gen_exp = tc.num_envs * T
+        n_upd = _n_target(rl_cfg, tc, rep, T, real_in_replay, gen_exp, updates_done,
+                          upd_per_gen)
+        ts, rep, metrics = run_updates(rl_cfg, ts, rep, generator, n_upd)
         total_exp += gen_exp
         gen += 1
+        updates_done += n_upd
+        mean_ret = float(final.cum_reward.mean())
+        ep_len = float(traj["mask"].sum(1).mean())
         history["gen"].append(gen)
         history["experiences"].append(total_exp)
-        history["mean_return"].append(stats["mean_return"])
-        history["mean_ep_len"].append(stats["ep_len"])
-        history["updates"].append(stats["n_upd"])
+        history["mean_return"].append(mean_ret)
+        history["mean_ep_len"].append(ep_len)
+        history["updates"].append(n_upd)
         history["metrics"].append({k: float(v) for k, v in metrics.items()})
         history["wall_time"].append(time.time() - t0)
-        history["env_steps_per_s"].append(gen_exp / (time.perf_counter() - t_gen))
-        history["blowups"].append(stats["blowups"])
-        history["rew_scale"].append(stats["rew_scale"])
+        throughput.tick(gen_exp)
+        history["env_steps_per_s"].append(throughput.rate())
+        history["blowups"].append(int(traj["truncated"].sum()))
+        history["rew_scale"].append(float(running_stats.second_moment(ts.rew_stats)))
+
+        if tc.decay_diagnostics:
+            V, mu_p, sigma_p = vracer.policy_apply(rl_cfg, ts, probe_obs)
+            rscale = float(running_stats.second_moment(ts.rew_stats))
+            mu_p = mu_p.cpu().numpy()
+            if init_probe_mu is None:
+                init_probe_mu = mu_p
+            rms = lambda a: float(np.sqrt(np.mean(a * a)))
+            occ = (min(rep.cursor, rl_cfg.replay_max_experiences) if exp_mode
+                   else rep.filled)
+            history["diag"].append(dict(
+                # V(s0) and the realized return, both in SCALED units
+                v0_scaled=float(V.mean()),
+                return_scaled=float(mean_ret / max(rscale, 1e-30)),
+                rew_scale=rscale,
+                mu_drift_rms=(rms(mu_p - prev_probe_mu) if prev_probe_mu is not None
+                              else 0.0),
+                mu_from_init_rms=rms(mu_p - init_probe_mu),
+                mu_rms=rms(mu_p), sigma_probe=float(sigma_p.mean()),
+                replay_occupancy=int(occ)))
+            prev_probe_mu = mu_p
+
+        if tc.testing_frequency and gen % tc.testing_frequency == 0:
+            _, tfinal = collect_episodes(env, rl_cfg, ts, generator, tc.testing_episodes, 0,
+                                         deterministic=True)
+            tret = float(tfinal.cum_reward.mean())
+            history["test_return"].append(tret)
+            # best-policy checkpoint by deterministic test return
+            if tc.checkpoint_dir and tret > best_test:
+                best_test = tret
+                best = os.path.join(tc.checkpoint_dir, "best")
+                ckpt.save_train_state(best, ts, None)
+                with open(os.path.join(best, "best.json"), "w") as f:
+                    json.dump({"gen": gen, "test_return": tret}, f)
+        if tc.checkpoint_dir and gen % tc.checkpoint_every == 0:
+            _save_checkpoint(tc, ts, history, rep, generator, gen, total_exp, episode_base,
+                             real_in_replay, rl_cfg)
         if verbose and gen % tc.log_every == 0:
-            print(f"[trainer] gen {gen} exp {total_exp} return "
-                  f"{stats['mean_return']:.5f} eplen {stats['ep_len']:.1f} "
-                  f"updates {stats['n_upd']} "
+            print(f"[trainer] gen {gen} exp {total_exp} return {mean_ret:.5f} "
+                  f"eplen {ep_len:.1f} updates {n_upd} "
                   f"beta {history['metrics'][-1].get('beta', '-')}", flush=True)
         if callback is not None:
             callback(gen, ts, rep, history)
+
+    if tc.checkpoint_dir:
+        _save_checkpoint(tc, ts, history, rep, generator, gen, total_exp, episode_base,
+                         real_in_replay, rl_cfg)
     return ts, rep, history
+
+
+def evaluate(env: Env, rl_cfg, ts, generator=None, n_episodes: int = 8):
+    """Deterministic-policy evaluation; returns per-episode returns (n, na) as
+    numpy.  ``generator`` draws the reset offsets of noisy configs."""
+    _traj, final = collect_episodes(env, rl_cfg, ts, generator, n_episodes, 0,
+                                    deterministic=True)
+    return final.cum_reward.cpu().numpy()

@@ -1,0 +1,155 @@
+"""Checkpoint/resume: the korali e.loadState / File Output equivalent
+(port of marlpde_tpu/utils/checkpoint.py:43-182, on torch.save/torch.load).
+
+A complete checkpoint restores training exactly where it stopped.  Pieces:
+
+  * train state  — module and Adam state_dicts, REFER beta, the update
+                   counter and both normalizers (latest.pt)
+  * history      — per-generation curves (history.json, the JAX schema)
+  * meta         — the trainer's torch.Generator state and the gen /
+                   experiences / episode / live-experience counters, plus the
+                   mu_param / cutoff_dim_norm fingerprint (meta.npz); with
+                   these a killed-and-resumed run continues bitwise
+  * replay       — either replay layout (replay.pt), opt-in like korali's
+                   "Experience Replay Serialize" because it is large
+
+The train-state file is ``latest.pt``, so a JAX ``latest.pkl`` is never taken
+for it.  The JAX package's orbax backend (multi-host TPU plumbing) is not
+ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+
+from marlpde_tpu_torch.rl import running_stats, vracer
+
+
+def _save(obj, fname: str):
+    """torch.save through a temporary file, so a killed run never leaves a
+    half-written checkpoint."""
+    tmp = f"{fname}.{os.getpid()}.tmp"
+    torch.save(obj, tmp)
+    os.replace(tmp, fname)
+
+
+def save_train_state(path: str, ts: vracer.TrainState, history: Optional[dict] = None):
+    os.makedirs(path, exist_ok=True)
+    _save(dict(net=ts.net.state_dict(), opt=ts.opt.state_dict(), beta=ts.beta,
+               n_updates=int(ts.n_updates),
+               obs_stats=dataclasses.asdict(ts.obs_stats),
+               rew_stats=dataclasses.asdict(ts.rew_stats)),
+          os.path.join(path, "latest.pt"))
+    if history is not None:
+        with open(os.path.join(path, "history.json"), "w") as f:
+            json.dump(history, f)
+
+
+def load_train_state(path: str, rl_cfg, device=None) -> Optional[vracer.TrainState]:
+    """The restored TrainState on ``device`` (the CPU by default), or None if
+    absent."""
+    fname = os.path.join(path, "latest.pt")
+    if not os.path.exists(fname):
+        return None
+    d = torch.load(fname, map_location=device or "cpu", weights_only=True)
+    beta = d["beta"]
+    # the initial draw is overwritten at once; a private generator keeps it
+    # off the global stream
+    ts = vracer.init_train(rl_cfg, torch.Generator(device=beta.device).manual_seed(0),
+                           dtype=beta.dtype, device=beta.device)
+    ts.net.load_state_dict(d["net"])
+    ts.opt.load_state_dict(d["opt"])
+    return dataclasses.replace(
+        ts, beta=beta, n_updates=int(d["n_updates"]),
+        obs_stats=running_stats.RunningStats(**d["obs_stats"]),
+        rew_stats=running_stats.RunningStats(**d["rew_stats"]))
+
+
+def load_history(path: str) -> Optional[dict]:
+    fname = os.path.join(path, "history.json")
+    if not os.path.exists(fname):
+        return None
+    with open(fname) as f:
+        return json.load(f)
+
+
+def save_meta(path: str, generator: torch.Generator, gen: int, total_exp: float,
+              episode_base: int, real_in_replay: Optional[int] = None, rl_cfg=None):
+    """The trainer's generator state and counters (what korali folds into its
+    state file so a resumed run continues the same stream), the cumulative
+    live-experience insert count that drives the korali update ledger, and the
+    config fingerprint that ``check_fingerprint`` enforces (see the JAX
+    module for why each is needed)."""
+    os.makedirs(path, exist_ok=True)
+    extra = {}
+    if real_in_replay is not None:
+        extra["real_in_replay"] = np.int64(real_in_replay)
+    if rl_cfg is not None:
+        extra["mu_param"] = np.str_(rl_cfg.mu_param)
+        extra["cutoff_dim_norm"] = np.bool_(rl_cfg.cutoff_dim_norm)
+    np.savez(os.path.join(path, "meta.npz"),
+             generator=generator.get_state().numpy(),
+             gen=np.int64(gen), total_exp=np.float64(total_exp),
+             episode_base=np.int64(episode_base), **extra)
+
+
+def load_meta(path: str) -> Optional[dict]:
+    fname = os.path.join(path, "meta.npz")
+    if not os.path.exists(fname):
+        return None
+    with np.load(fname) as d:
+        meta = dict(generator=torch.from_numpy(d["generator"].copy()), gen=int(d["gen"]),
+                    total_exp=float(d["total_exp"]), episode_base=int(d["episode_base"]))
+        if "real_in_replay" in d:
+            meta["real_in_replay"] = int(d["real_in_replay"])
+        if "mu_param" in d:
+            meta["mu_param"] = str(d["mu_param"])
+            meta["cutoff_dim_norm"] = bool(d["cutoff_dim_norm"])
+    return meta
+
+
+def check_fingerprint(path: str, rl_cfg, what: str = "resume"):
+    """Refuse to marry a checkpoint to a mismatched learner config: the module
+    is shape-identical across mu_param modes, so a mismatched resume would
+    silently rescale the policy mean.  A checkpoint without the fingerprint
+    only gets a warning."""
+    meta = load_meta(path)
+    if meta is None or "mu_param" not in meta:
+        print(f"[checkpoint] WARNING: {path} has no config fingerprint; "
+              f"cannot verify mu_param/cutoff_dim_norm match for {what} "
+              f"(pre-round-5 checkpoint?)")
+        return
+    for field in ("mu_param", "cutoff_dim_norm"):
+        saved, now = meta[field], getattr(rl_cfg, field)
+        if saved != now:
+            raise SystemExit(
+                f"[checkpoint] {what}: saved {field}={saved!r} but the "
+                f"current config has {field}={now!r}.  Loading across modes "
+                f"silently rescales the policy mean; pass --muparam/--dimnorm "
+                f"matching the original run (see docs/REFER_SCALE.md).")
+
+
+def _replay_fields(rep):
+    return [f.name for f in dataclasses.fields(rep)]
+
+
+def save_replay(path: str, rep):
+    """Either replay layout (episode-slot Replay, flat FlatReplay): the fields
+    are introspected from the dataclass, host counters included."""
+    os.makedirs(path, exist_ok=True)
+    _save({k: getattr(rep, k) for k in _replay_fields(rep)}, os.path.join(path, "replay.pt"))
+
+
+def load_replay(path: str, template):
+    """The saved replay, on ``template``'s device, or None if absent."""
+    fname = os.path.join(path, "replay.pt")
+    if not os.path.exists(fname):
+        return None
+    data = torch.load(fname, map_location=template.obs.device, weights_only=True)
+    return dataclasses.replace(template, **{k: data[k] for k in _replay_fields(template)})

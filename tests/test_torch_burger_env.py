@@ -132,10 +132,15 @@ def test_registry_covers_the_slice_only(pools):
     assert env.num_agents == 32 and env.name == "burger-marl"
     env = treg.make_env("burger", pool=tpool, **kw)
     assert env.obs_dim == CFG.obs_dim and env.act_dim == CFG.actions_per_agent
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        treg.make_env("burger", pool=tpool, fast="off", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        treg.make_env("burger", pool=tpool, **{**kw, "spectral_reward": False})
+    assert env.whole_batch
+    # fast='off' and configs the whole-batch env does not take get the
+    # general per-env env; the MSE reward and the closures are not ported
+    for off_fast in (dict(fast="off"), dict(dforce=False), dict(nunoise=True)):
+        env = treg.make_env("burger", pool=tpool, **{**kw, **off_fast})
+        assert not env.whole_batch and env.step.func is tbe.step
+    for off_slice in (dict(spectral_reward=False), dict(ssm=True), dict(forcing=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            treg.make_env("burger", pool=tpool, **{**kw, **off_slice})
     for off_slice in (dict(spectral_reward=False), dict(forcing=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tbe.make_dns_pool(dataclasses.replace(tcfg(CFG), **off_slice), 1, device="cpu")

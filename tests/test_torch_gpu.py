@@ -83,6 +83,35 @@ def test_mlp_kernel_matches_module(cuda, mu_param, sigma_max, R):
             assert (o - r).abs().max().item() <= 2e-5     # tests/test_pallas.py MLP tolerance
 
 
+@pytest.mark.parametrize("mu_param", ["absolute", "sigma_relative"])
+@pytest.mark.parametrize("width,obs_dim,act_dim", [(32, 3, 1), (128, 3, 1), (160, 3, 1),
+                                                   (256, 3, 1), (192, 32, 32),
+                                                   (256, 32, 32)])
+def test_mlp_kernel_widths(cuda, width, obs_dim, act_dim, mu_param):
+    """Every width the presets use (32, 128, 256), one that is no power of two,
+    and the single-agent burger shape (32 obs, 32 actions), whose heads leave
+    no room for the whole of W2 even at width 192."""
+    g = torch.Generator().manual_seed(width)
+    net = networks.VracerNet(obs_dim, act_dim, width=width, mu_param=mu_param, device=cuda)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.copy_(torch.randn(p.shape, generator=g).to(cuda) * (0.5 / np.sqrt(p.shape[-1])))
+        x = torch.randn(3000, obs_dim, generator=g).to(cuda)
+        out = mlp.mlp_forward(x, net)
+        torch.cuda.synchronize()
+        for o, r in zip(out, net(x)):
+            assert o.shape == r.shape
+            # float32 sums of up to 256 terms in another order than cuBLAS
+            assert (o - r).abs().max().item() <= 2e-5
+
+
+@pytest.mark.parametrize("width", [96 + 1, 288])
+def test_mlp_kernel_refuses_widths_it_does_not_take(cuda, width):
+    net = networks.VracerNet(3, 1, width=width, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 32 up to 256"):
+        mlp.mlp_forward(torch.zeros(4, 3, device=cuda), net)
+
+
 def test_fast_env_step_on_card_matches_cpu(cuda):
     cfg = burger_env.BurgerEnvConfig(N_dns=64, grid_size=32, num_actions=32, num_agents=4,
                                      dt=0.01, T=0.5, nu=0.05, episode_length=5,
@@ -97,3 +126,55 @@ def test_fast_env_step_on_card_matches_cpu(cuda):
         states = {d: outs[d][0] for d in pools}
         for x, y in zip(outs[cuda][1:3], outs["cpu"][1:3]):
             assert (x.cpu() - y).abs().max().item() <= 1e-5 * max(1.0, y.abs().max().item())
+
+
+def test_experience_update_on_card_matches_cpu(cuda, monkeypatch):
+    """flat_insert then one update_experience with the same minibatch ids, on
+    the card (MLP kernel, cuBLAS) and on the CPU (plain versions), float32."""
+    from marlpde_tpu_torch.rl import replay_flat, vracer
+
+    cfg = vracer.VracerConfig(obs_dim=3, act_dim=1, num_agents=4, episode_length=20,
+                              width=128, mini_batch_size=6, replay_max_experiences=64,
+                              replay_episode_capacity=8, lr=1e-3)
+    rng = np.random.default_rng(0)
+    B, T, na = 4, 20, 4
+    mask = np.ones((B, T), np.float32)
+    mask[1, 12:] = 0.0
+    batch = dict(obs=rng.standard_normal((B, T, na, 3)), actions=rng.standard_normal((B, T, na, 1)),
+                 mu=rng.standard_normal((B, T, na, 1)) * 0.3,
+                 sigma=rng.uniform(0.05, 0.3, (B, T, na, 1)),
+                 rewards=rng.standard_normal((B, T, na)) * 0.05, mask=mask,
+                 final_obs=rng.standard_normal((B, na, 3)),
+                 truncated=np.array([False, True, False, False]))
+    ids = np.array([20, 20, 31, 50, 61, 35])            # live ids 8..71 after the insert
+    states = []
+    weights = None
+    for dev in ("cpu", cuda):
+        ts = vracer.init_train(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        if weights is None:
+            with torch.no_grad():
+                for p in ts.net.parameters():
+                    p.add_(torch.randn(p.shape, generator=torch.Generator().manual_seed(1)) * 0.2)
+            weights = {k: v.clone() for k, v in ts.net.state_dict().items()}
+        ts.net.load_state_dict(weights)
+        tb = {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in batch.items()}
+        tb = {k: (v.float() if v.is_floating_point() else v) for k, v in tb.items()}
+        ts = vracer.observe_episodes(cfg, ts, tb)
+        rep = replay_flat.init_flat(64, 8, na, 3, 1, device=dev)
+        rep = vracer.flat_insert(cfg, ts, rep, tb)
+        monkeypatch.setattr(replay_flat, "sample_ids",
+                            lambda r, g, n: torch.as_tensor(ids, device=r.obs.device))
+        ts, rep, m = vracer.update_experience(cfg, ts, rep, None)
+        torch.cuda.synchronize()
+        states.append((ts, rep, m))
+    (tc, rc, mc), (tg, rg, mg) = states
+    assert tg.n_updates == tc.n_updates == 1 and rg.cursor == rc.cursor == 72
+    # float32 sums in other orders (kernel, cuBLAS) through one Adam step
+    for a, b in zip(tg.net.parameters(), tc.net.parameters()):
+        assert (a.cpu() - b).abs().max().item() <= 1e-5
+    for name in ("sv", "vtg", "rho", "boot"):
+        a, b = getattr(rg, name).cpu(), getattr(rc, name)
+        assert (a - b).abs().max().item() <= 1e-4 * max(1.0, b.abs().max().item()), name
+    assert torch.equal(rg.off.cpu(), rc.off) and torch.equal(rg.ep_last.cpu(), rc.ep_last)
+    for k in ("loss", "beta", "frac_off_replay"):
+        assert abs(float(mg[k]) - float(mc[k])) <= 1e-4 * max(1.0, abs(float(mc[k]))), k

@@ -17,18 +17,24 @@ import torch
 from marlpde_tpu.envs import burger_env as jbe
 from marlpde_tpu.envs import burger_fast as jbf
 from marlpde_tpu.rl import replay as jreplay
+from marlpde_tpu.rl import replay_flat as jflat
 from marlpde_tpu.rl import running_stats as jrs
+from marlpde_tpu.solvers import burger as jburger
 from marlpde_tpu.rl import vracer as jv
 from marlpde_tpu_torch.envs import burger_env as tbe
 from marlpde_tpu_torch.envs import burger_fast as tbf
 from marlpde_tpu_torch.rl import networks as tnet
 from marlpde_tpu_torch.rl import replay as treplay
+from marlpde_tpu_torch.rl import replay_flat as tflat
 from marlpde_tpu_torch.rl import running_stats as trs
 from marlpde_tpu_torch.rl import vracer as tv
+from marlpde_tpu_torch.solvers import burger as tburger
 
 torch.set_num_threads(1)
 
 _INT_FIELDS = ("sidx", "ioutnum", "macro_step")
+_FLAT_IDS = ("ep_first", "ep_last", "ep_idx")
+_FLAT_COUNTERS = ("cursor", "n_episodes")
 
 
 def t(x, dtype=None):
@@ -122,6 +128,22 @@ def replay_to_jax(rep) -> jreplay.Replay:
                           cursor=jnp.asarray(rep.cursor, jnp.int32))
 
 
+def flat_from_jax(jrep) -> tflat.FlatReplay:
+    """JAX FlatReplay (int32 ids, device counters) -> the port's (int64 ids,
+    host counters)."""
+    kw = {f.name: t(getattr(jrep, f.name), torch.int64 if f.name in _FLAT_IDS else None)
+          for f in dataclasses.fields(tflat.FlatReplay) if f.name not in _FLAT_COUNTERS}
+    return tflat.FlatReplay(**kw, cursor=int(jrep.cursor), n_episodes=int(jrep.n_episodes))
+
+
+def flat_to_jax(rep) -> jflat.FlatReplay:
+    kw = {f.name: jnp.asarray(n(getattr(rep, f.name)).astype(np.int32)
+                              if f.name in _FLAT_IDS else n(getattr(rep, f.name)))
+          for f in dataclasses.fields(tflat.FlatReplay) if f.name not in _FLAT_COUNTERS}
+    return jflat.FlatReplay(**kw, cursor=jnp.asarray(rep.cursor, jnp.int32),
+                            n_episodes=jnp.asarray(rep.n_episodes, jnp.int32))
+
+
 def fast_state_from_jax(jst) -> tbf.FastEnvState:
     return tbf.FastEnvState(**{
         f.name: t(getattr(jst, f.name), torch.int64 if f.name in _INT_FIELDS else None)
@@ -133,6 +155,32 @@ def fast_state_to_jax(st) -> jbf.FastEnvState:
         f.name: jnp.asarray(n(getattr(st, f.name)).astype(np.int32)
                             if f.name in _INT_FIELDS else n(getattr(st, f.name)))
         for f in dataclasses.fields(tbf.FastEnvState)})
+
+
+def _to_t(name, x):
+    return t(x, torch.int64 if name in _INT_FIELDS else None)
+
+
+def _to_j(name, x):
+    a = n(x)
+    return jnp.asarray(a.astype(np.int32) if name in _INT_FIELDS else a)
+
+
+def env_state_from_jax(jst) -> tbe.BurgerEnvState:
+    """JAX BurgerEnvState (batched by vmap) -> the port's."""
+    solver = tburger.BurgerState(**{f.name: _to_t(f.name, getattr(jst.solver, f.name))
+                                    for f in dataclasses.fields(tburger.BurgerState)})
+    return tbe.BurgerEnvState(solver=solver, **{
+        f.name: _to_t(f.name, getattr(jst, f.name))
+        for f in dataclasses.fields(tbe.BurgerEnvState) if f.name != "solver"})
+
+
+def env_state_to_jax(st) -> jbe.BurgerEnvState:
+    solver = jburger.BurgerState(**{f.name: _to_j(f.name, getattr(st.solver, f.name))
+                                    for f in dataclasses.fields(tburger.BurgerState)})
+    return jbe.BurgerEnvState(solver=solver, **{
+        f.name: _to_j(f.name, getattr(st, f.name))
+        for f in dataclasses.fields(tbe.BurgerEnvState) if f.name != "solver"})
 
 
 def pool_from_jax(jpool) -> tbe.DnsPool:
@@ -172,6 +220,17 @@ def test_replay_and_fast_state_round_trip():
     back = replay_to_jax(replay_from_jax(rep))
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(rep)):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+    frep = jflat.init_flat(6, 3, 2, 5, 1, dtype=jnp.float64)
+    frep = frep.replace(obs=frep.obs + 1.5, ep_last=frep.ep_last + 4,
+                        off=frep.off.at[2].set(True), cursor=jnp.asarray(9, jnp.int32),
+                        n_episodes=jnp.asarray(2, jnp.int32))
+    tback = flat_from_jax(frep)
+    assert tback.ep_last.dtype == torch.int64 and (tback.cursor, tback.live) == (9, 6)
+    back = flat_to_jax(tback)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(frep)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+        assert np.asarray(a).dtype == np.asarray(b).dtype
 
     cfg = jbe.BurgerEnvConfig(N_dns=64, grid_size=32, num_actions=32, num_agents=4,
                               dt=0.01, T=0.5, nu=0.05, episode_length=5,

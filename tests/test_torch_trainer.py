@@ -105,8 +105,13 @@ def test_two_fused_generations_of_train(envs):
 def test_train_refuses_what_the_slice_does_not_cover(envs):
     _, tenv = envs
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttr.train(tenv, tc=ttr.TrainerConfig(checkpoint_dir="x"), verbose=False)
+        ttr.train(tenv, tc=ttr.TrainerConfig(save_episodes_dir="x"), verbose=False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttr.make_replay(tenv, ttr.default_rl_config(tenv, minibatch_mode="experience"))
+        ttr.build_fused_generation(tenv, ttr.default_rl_config(tenv),
+                                   ttr.TrainerConfig(save_episodes_dir="x"), 1)
+    # experience mode is ported: its replay is the flat ring
+    rep = ttr.make_replay(tenv, ttr.default_rl_config(tenv, minibatch_mode="experience",
+                                                      replay_max_experiences=64))
+    assert rep.capacity == 64 and rep.ep_capacity == 1024 and rep.cursor == 0
     assert ttr.updates_per_generation(ttr.default_rl_config(tenv), ttr.TrainerConfig(
         num_envs=1024), 500) == 200
