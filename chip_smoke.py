@@ -6,7 +6,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 
 1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
 2. build both CUDA kernels from marlpde_tpu_torch/csrc (one nvcc per source,
-   started together; sm_90a);
+   started together; sm_90a), with each one's ptxas registers and spills, and
+   the count of tensor-core instructions (HGMMA) in the MLP library's SASS;
 3. [kernels] each kernel against its plain PyTorch version on the card at the
    shapes of the paths below, with CUDA-event times (median of 20 calls) of
    both: ABCN at the flagship batch, the MLP at widths 128 and 256 in both
@@ -146,12 +147,16 @@ def phase_kernels(env, dev):
             plain_ms = median_ms(lambda: net(x))
         print(f"[kernels] mlp_forward R={R} obs={cfg.obs_dim} W={width} A=1 "
               f"mu_param={mu_param}: max abs err {err:.3e} (tolerance {MLP_TOL:g}: "
-              f"float32 sums of {width} terms in another order than cuBLAS); "
+              f"3xTF32 tensor-core sums of {width} terms against cuBLAS's float32); "
               f"kernel {ms:.4f} ms, plain module {plain_ms:.4f} ms")
         check(err <= MLP_TOL, f"mlp kernel disagrees with VracerNet (W={width}, "
                               f"{mu_param}): {err:.3e}")
         mlp_rows.append(dict(R=R, width=width, mu_param=mu_param, err=err, ms=ms,
                              plain_ms=plain_ms))
+    for width in (128, 256):
+        w2 = torch.randn(width, width, generator=g, device=dev)
+        print(f"[kernels] w2_image W={width} (the 3xTF32 split of W2, once per parameter "
+              f"version; torch ops): {median_ms(lambda: mlp.w2_image(w2)):.4f} ms")
     flag = {(r["width"], r["mu_param"]): r for r in mlp_rows if r["R"] == NUM_ENVS * 32}
     results.append(dict(name="mlp_forward", route="cuda",
                         source="marlpde_tpu_torch/csrc/mlp.cu",
@@ -176,19 +181,21 @@ def phase_main_path(env):
                                max_experiences=GENERATIONS * NUM_ENVS * env.episode_length)
     upd = trainer.updates_per_generation(rl_cfg, tc, env.episode_length)
     check(upd == 200, f"updates_per_generation is {upd}, expected 200")
-    counts = [(0, 0)]
+    counts = [(0, 0, 0)]
     substeps = NUM_ENVS * env.episode_length * env.cfg.n_intermediate
 
     def report(gen, ts, rep, hist):
         torch.cuda.synchronize()
-        counts.append((abcn.launches, mlp.launches))
+        counts.append((abcn.launches, mlp.launches, mlp.w2_splits))
         dt = hist["wall_time"][-1] - (hist["wall_time"][-2] if gen > 1 else 0.0)
         d_abcn = counts[-1][0] - counts[-2][0]
         d_mlp = counts[-1][1] - counts[-2][1]
+        d_split = counts[-1][2] - counts[-2][2]
         print(f"[main] gen {gen}: {dt:.3f} s ({substeps / dt:.1f} LES-substeps/s), "
               f"mean_return {hist['mean_return'][-1]:.6f}, blowups {hist['blowups'][-1]}, "
               f"ep_len {hist['mean_ep_len'][-1]:.1f}, rew_scale {hist['rew_scale'][-1]:.6g}, "
-              f"n_upd {hist['updates'][-1]}, launches abcn +{d_abcn} mlp +{d_mlp}",
+              f"n_upd {hist['updates'][-1]}, launches abcn +{d_abcn} mlp +{d_mlp} "
+              f"(W2 split +{d_split})",
               flush=True)
         check(d_abcn == env.episode_length,
               f"gen {gen}: abcn kernel launched {d_abcn} times, expected {env.episode_length}")
@@ -197,6 +204,7 @@ def phase_main_path(env):
 
     abcn.launches = 0
     mlp.launches = 0
+    mlp.w2_splits = 0
     ts, rep, hist = trainer.train(env, rl_cfg, tc, verbose=False, callback=report)
     launches = dict(abcn_macro_step=abcn.launches, mlp_forward=mlp.launches)
 
@@ -407,8 +415,8 @@ def phase_cli_breakdown(ts, rep):
 
 
 def phase_cli_w256():
-    """One generation at the CLI's default width (256): the repaired kernel
-    on the main path."""
+    """One generation at the CLI's default width (256): the kernel's streamed
+    W2 on the main path."""
     ts, rep, hist, rows, launches = _cli(
         "burger-marl --nagents 32 --specreward --dforce --ic turbulence --NE 5000 "
         "--numenvs 10 --run 256".split(), "cli-w256")
@@ -481,8 +489,15 @@ def main() -> int:
     print(f"[build] abcn.cu and mlp.cu built (in parallel) and loaded in "
           f"{time.perf_counter() - t0:.2f} s")
     for name, log in build.build_logs.items():
-        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        regs = [ln.strip() for ln in log.splitlines()
+                if "registers" in ln or "spill" in ln or "Performance Loss" in ln]
         print(f"[build] {name}: {' | '.join(regs)}")
+    sass = subprocess.run([os.path.join(os.path.dirname(build._nvcc()), "cuobjdump"), "-sass",
+                           str(build.library_path("mlp"))], capture_output=True, text=True,
+                          check=True).stdout
+    n_hgmma = sum("HGMMA" in ln for ln in sass.splitlines())
+    print(f"[build] mlp: {n_hgmma} HGMMA (wgmma) instructions in the SASS")
+    check(n_hgmma > 0, "the MLP kernel has no tensor-core instructions")
 
     t0 = time.perf_counter()
     env = registry.make_env("burger", dtype=torch.float32, device=dev, **FLAGSHIP)

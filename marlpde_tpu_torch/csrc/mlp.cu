@@ -10,197 +10,379 @@
 // mu_param='sigma_relative', mu = mu * sigma (networks.py:89-98).  Weights
 // are taken in nn.Linear's (out, in) layout.
 //
-// What bounds it on the H100: at the flagship shape (R=32768 rows, obs 3,
-// width 128, 1 action) one call is 2*R*(3*128 + 128*128 + 3*128) = 1.1 GFLOP
-// of fp32 FMAs against 0.8 MB of obs in and heads out, so it is bound by
-// fp32 arithmetic and the shared-memory reads that feed it, not by HBM.  The
-// simple design keeps every activation on chip: each block stages W2 (64 KB
-// at width 128, so dynamic shared memory above the 48 KB static limit), W1,
-// the biases and the heads once, then walks tiles of 32 rows.  A block has
-// 4*width threads: thread (g, j) owns hidden unit j for the 8 rows of row
-// group g, keeps their accumulators in registers, reads h1 as float4
-// broadcasts and its W2 column from a padded, conflict-free layout.  Four
-// row groups per block keep 32 warps on an SM although a block's shared
-// memory allows only two blocks there.  The heads are warp-shuffle dot
-// products.  No tensor cores yet (wgmma is later work).
+// What bounds it on the H100: layer 2 is 98% of the arithmetic at width 256
+// (2*R*W^2 of 2*R*(D*W + W^2 + (1+2A)*W)), so it runs on the tensor cores.
+// TF32 alone keeps 10 mantissa bits and misses the float32 tolerance (2e-5
+// against the module) by some 25x, so layer 2 is 3xTF32: each operand x is
+// split into hi = tf32(x) and lo = x - hi, and one float32 accumulator takes
+// a_lo*b_hi + a_hi*b_lo + a_hi*b_hi, which is as exact as float32 (the
+// dropped a_lo*b_lo is 2^-22 of the product).  At R=32768, W=256 that is
+// 12.9 GFLOP of TF32 work, 26 us at the datasheet's 495 TFLOP/s.
 //
-// Widths above 192 (the CLI's default 256): W2 alone is 256 KB at width 256,
-// more than the 227 KB one block may take.  There the block stages W2 in
-// K-chunks of 64 input units (64 KB at width 256) for every tile and adds each
-// chunk's partial sums into the same registers before the next chunk is
-// staged; the thread layout stays, so width 256 takes the 1024 threads a block
-// may have.  The whole-W2 layout is kept wherever it fits.  One build serves
-// every width: the 1024-thread bound holds it to 64 registers, no spills,
-// which also lets two 512-thread blocks share an SM at width 128.
+// Design.  A block has two consumer warpgroups and one producer warpgroup
+// (setmaxnreg moves registers to the consumers: 232 a thread, which the
+// m64x256 accumulator of width 256 needs to keep its wgmmas unserialised), and
+// walks tiles of 128 rows (64 a warpgroup); the grid is at most one block per
+// SM per what fits, each block looping over tiles.
+// - W2 is split once per parameter version by the wrapper
+//   (kernels/mlp.py:w2_image) into an image of K-chunks of 32 input units:
+//   chunk kc holds hi then lo, each W rows of 128 bytes laid out as the
+//   128-byte swizzle of a K-major wgmma operand (16-byte group j of row n at
+//   j ^ (n % 8)).  The producer copies whole chunks (up to 64 KB) into a ring
+//   of shared-memory stages with cp.async.bulk, completion on an mbarrier;
+//   the consumers release a stage on a second mbarrier once their wgmmas have
+//   read it.  Where every chunk fits (width <= 160 at obs 3: 128 KB of hi+lo
+//   at width 128), the ring holds all of W2 and it is loaded once for the
+//   whole call; above, it streams, once per 128-row tile.
+// - Layer 1 (D FMAs and one tanhf an element) is computed straight into the
+//   wgmma A fragment (m64k8, 4 values a thread), split into hi/lo in
+//   registers; every element is computed once per tile, the row's inputs
+//   held in registers where D <= 4.  A is double-buffered by k-step, so
+//   layer 1 of k-step k+1 runs while the three wgmmas of k run (one group a
+//   k-step: a group per 4-k-step chunk measured 40% slower at width 256).
+// - Layer 2 is wgmma.mma_async m64nWk8 tf32, three per k-step, with the
+//   m64xW float32 accumulator in registers (W/2 a thread).
+// - The epilogue forms h2 = tanh(acc + b2) in the accumulator registers; each
+//   head is a per-thread partial dot over the thread's columns, reduced over
+//   the 4 threads of a row by shuffles.  No atomics: two calls give the
+//   same bits.
+// tanhf and log1pf/expf are the accurate ones; tanh.approx (~5e-4 relative)
+// would break the tolerance.
+//
+// Measured on the H100 (PERF.md): at R=32768 the kernel takes 0.026 ms
+// at width 128 and 0.052 ms at 256, about half the tensor-core peak at 256.
+// What is left is split: without the two extra products it is 19% faster,
+// without layer 1 17-33%, without the epilogue's tanhf and heads 18-25%;
+// streaming W2 costs nothing measurable (1 KB copies in place of 64 KB change
+// under 1%).  The SIMT work (one tanhf per hidden value, the heads) and the
+// tensor work of a warpgroup overlap only partly.
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "wgmma_tf32.cuh"
 
 namespace {
 
-constexpr int kRows = 32;           // rows per tile
-constexpr int kRowsPerThread = 8;   // rows of one row group
-constexpr int kGroups = kRows / kRowsPerThread;
-// threads per block = kGroups * width, at most 1024
+constexpr int kTileRows = 128;           // rows per tile: two warpgroups of 64
+constexpr int kConsumers = 256;          // threads of the two consumer warpgroups
+constexpr int kThreads = kConsumers + 128;  // and one producer warpgroup
+// registers a thread after setmaxnreg: 2*128*232 + 128*40 <= 65536
+constexpr int kConsumerRegs = 232;
+constexpr int kProducerRegs = 40;
+constexpr int kChunkK = 32;              // input units per W2 chunk: one 128-byte row
 constexpr int kMaxWidth = 256;
-// W2 rows staged at a time when the whole of W2 does not fit
-constexpr int kChunk = 64;
+constexpr int kSmallD = 4;               // inputs a thread keeps in registers
 
 __device__ __forceinline__ float softplus(float x) {
   // jax.nn.softplus = logaddexp(x, 0)
   return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
 }
 
-// kc: rows of W2 held in shared memory at a time; kc == W stages it once
-__global__ void __launch_bounds__(kGroups * kMaxWidth) mlp_forward_kernel(
-    const float* __restrict__ obs, const float* __restrict__ w1,
-    const float* __restrict__ b1, const float* __restrict__ w2,
-    const float* __restrict__ b2, const float* __restrict__ wv,
-    const float* __restrict__ bv, const float* __restrict__ wm,
-    const float* __restrict__ bm, const float* __restrict__ ws,
-    const float* __restrict__ bs, float* __restrict__ v_out,
-    float* __restrict__ mu_out, float* __restrict__ sigma_out,
-    int R, int D, int W, int A, float sigma_scale, float sigma_floor,
-    float sigma_max, int sigma_relative, int kc) {
-  extern __shared__ __align__(16) float smem[];
-  const int H = 1 + 2 * A;  // head outputs per row: V, mu[A], raw sigma[A]
-  float* h1 = smem;                    // kRows * W
-  float* h2 = h1 + kRows * W;          // kRows * W
-  float* w2s = h2 + kRows * W;         // kc * (W + 1), [i - k0][j] = W2[j][i]
-  float* w1s = w2s + kc * (W + 1);     // D * W,        [d][j] = W1[j][d]
-  float* b1s = w1s + D * W;            // W
-  float* b2s = b1s + W;                // W
-  float* hs = b2s + W;                 // H * W, rows: wv, wm[A], ws[A]
-  float* hb = hs + H * W;              // H
-  float* xs = hb + H;                  // kRows * D
-  float* outs = xs + kRows * D;        // kRows * H
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// one bulk copy of `bytes` from global to shared, completing on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major operand in the 128-byte swizzle:
+// rows of 128 bytes, 8-row atoms 1024 bytes apart; `addr` may step by 32 bytes
+// (one k8 slice of tf32) inside a 1024-byte aligned atom
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ uint32_t tf32_hi(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void fence_a(uint32_t (&a)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(128) : "memory");
+}
+
+struct Args {
+  const float* obs;
+  const float* w2img;  // kernels/mlp.py:w2_image, (W/32) chunks of 2*W*32 floats
+  const float* w1;
+  const float* b1;
+  const float* b2;
+  const float* wv;
+  const float* bv;
+  const float* wm;
+  const float* bm;
+  const float* ws;
+  const float* bs;
+  float* v_out;
+  float* mu_out;
+  float* sigma_out;
+  int R, D, A;
+  float sigma_scale, sigma_floor, sigma_max;
+  int sigma_relative;
+  int stages;  // shared-memory stages of the W2 ring; == W/32: W2 resident
+};
+
+// shared memory, from a 1024-byte aligned base: stages * chunk bytes of W2
+// images, then W1 (W*D), b1 (W), the x tile (128*D), then 2*stages mbarriers
+template <int W>
+__global__ void __launch_bounds__(kThreads, 1) mlp_forward_kernel(const Args args) {
+  static_assert(W % kChunkK == 0 && W <= kMaxWidth, "width: a multiple of 32 up to 256");
+  constexpr int kChunks = W / kChunkK;
+  constexpr uint32_t kChunkBytes = 2u * W * kChunkK * sizeof(float);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  unsigned char* base = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  const int R = args.R, D = args.D, A = args.A, S = args.stages;
+  const bool resident = S == kChunks;
+  float* w1s = reinterpret_cast<float*>(base + (size_t)S * kChunkBytes);
+  float* b1s = w1s + W * D;
+  float* xs = b1s + W;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(xs + kTileRows * D);  // full[S], empty[S]
+  const uint32_t ring = smem_addr(base);
+  const uint32_t full0 = smem_addr(bars), empty0 = full0 + 8 * S;
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-
-  // rows k0 .. k0+n-1 of W2^T into w2s: coalesced reads along i, and bank
-  // (i + j) % 32 for the writes, since W is a multiple of 32
-  auto stage_w2 = [&](int k0, int n) {
-    for (int e = tid; e < n * W; e += blockDim.x) {
-      const int j = e / n, i = e - j * n;
-      w2s[i * (W + 1) + j] = w2[(long long)j * W + k0 + i];
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kConsumers / 32);  // one arrival per consumer warp
     }
-  };
-  const bool resident = kc == W;
-  if (resident) stage_w2(0, W);
-  for (int e = tid; e < W * D; e += blockDim.x) {
-    const int j = e / D, d = e - j * D;
-    w1s[d * W + j] = w1[e];
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int e = tid; e < W; e += blockDim.x) {
-    b1s[e] = b1[e];
-    b2s[e] = b2[e];
-    hs[e] = wv[e];
-  }
-  for (int e = tid; e < A * W; e += blockDim.x) {
-    hs[W + e] = wm[e];
-    hs[(1 + A) * W + e] = ws[e];
-  }
-  if (tid == 0) hb[0] = bv[0];
-  for (int e = tid; e < A; e += blockDim.x) {
-    hb[1 + e] = bm[e];
-    hb[1 + A + e] = bs[e];
-  }
+  for (int e = tid; e < W * D; e += kThreads) w1s[e] = args.w1[e];
+  for (int e = tid; e < W; e += kThreads) b1s[e] = args.b1[e];
+  __syncthreads();
 
-  const int j = tid % W;                    // hidden unit
-  const int r0 = (tid / W) * kRowsPerThread;  // first row of the row group
-  const int n_tiles = (R + kRows - 1) / kRows;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const long long row0 = (long long)tile * kRows;
-    for (int e = tid; e < kRows * D; e += blockDim.x) {
-      const long long g = row0 * D + e;
-      xs[e] = g < (long long)R * D ? obs[g] : 0.f;
+  const int n_tiles = (R + kTileRows - 1) / kTileRows;
+
+  if (tid >= kConsumers) {
+    // producer: one thread keeps the ring of W2 chunks in flight; its
+    // warpgroup gives its registers to the consumers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (tid != kConsumers) return;
+    if (resident) {
+      for (int kc = 0; kc < kChunks; ++kc)
+        bulk_load(ring + kc * kChunkBytes, args.w2img + (size_t)kc * kChunkBytes / 4,
+                  kChunkBytes, full0 + 8 * kc);
+      return;
     }
-    __syncthreads();
-
-    // layer 1
-    for (int r = r0; r < r0 + kRowsPerThread; ++r) {
-      float acc = 0.f;
-      for (int d = 0; d < D; ++d) acc = fmaf(xs[r * D + d], w1s[d * W + j], acc);
-      h1[r * W + j] = tanhf(acc + b1s[j]);
-    }
-    __syncthreads();
-
-    // layer 2: thread (g, j) accumulates unit j for the rows of group g
-    float acc[kRowsPerThread];
-#pragma unroll
-    for (int r = 0; r < kRowsPerThread; ++r) acc[r] = 0.f;
-    for (int k0 = 0; k0 < W; k0 += kc) {
-      const int n = min(kc, W - k0);
-      if (!resident) {
-        __syncthreads();  // every thread is done with the previous chunk
-        stage_w2(k0, n);
-        __syncthreads();
+    int it = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      for (int kc = 0; kc < kChunks; ++kc, ++it) {
+        const int s = it % S;
+        mbar_wait(empty0 + 8 * s, ((it / S) & 1) ^ 1);
+        bulk_load(ring + s * kChunkBytes, args.w2img + (size_t)kc * kChunkBytes / 4,
+                  kChunkBytes, full0 + 8 * s);
       }
-      for (int i = 0; i < n; i += 4) {
-        const float c0 = w2s[(i + 0) * (W + 1) + j];
-        const float c1 = w2s[(i + 1) * (W + 1) + j];
-        const float c2 = w2s[(i + 2) * (W + 1) + j];
-        const float c3 = w2s[(i + 3) * (W + 1) + j];
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  // consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of each tile; in
+  // the wgmma fragments thread (warp w, lane 4g + t) holds rows 16w + g and
+  // 16w + g + 8 of them, A columns t and t + 4 of each k8 slice, and
+  // accumulator columns 8j + 2t, 8j + 2t + 1
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = wg * 64 + warp * 16 + g;  // row of the tile; r0 + 8 the other
+  const float* xw = xs + wg * 64 * D;
+  int it = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const long long row0 = (long long)tile * kTileRows;
+    named_sync(1 + wg);  // the warpgroup is done with the last tile's x
+    for (int e = tid % 128; e < 64 * D; e += 128) {
+      const long long gi = (row0 + wg * 64) * D + e;
+      xs[wg * 64 * D + e] = gi < (long long)R * D ? args.obs[gi] : 0.f;
+    }
+    named_sync(1 + wg);
+
+    float acc[W / 2];
 #pragma unroll
-        for (int r = 0; r < kRowsPerThread; ++r) {
-          const float4 h = *reinterpret_cast<const float4*>(&h1[(r0 + r) * W + k0 + i]);
-          acc[r] = fmaf(h.x, c0, acc[r]);
-          acc[r] = fmaf(h.y, c1, acc[r]);
-          acc[r] = fmaf(h.z, c2, acc[r]);
-          acc[r] = fmaf(h.w, c3, acc[r]);
+    for (int i = 0; i < W / 2; ++i) acc[i] = 0.f;
+    uint32_t a_hi[2][4], a_lo[2][4];
+    const float* x0 = xw + (r0 - wg * 64) * D;
+    const float* x1 = x0 + 8 * D;
+    // up to kSmallD inputs (the burger envs' 3) stay in registers for the tile
+    float xr0[kSmallD], xr1[kSmallD];
+#pragma unroll
+    for (int d = 0; d < kSmallD; ++d) {
+      xr0[d] = d < D ? x0[d] : 0.f;
+      xr1[d] = d < D ? x1[d] : 0.f;
+    }
+    int prev_stage = -1;
+    for (int kc = 0; kc < kChunks; ++kc, ++it) {
+      const int s = resident ? kc : it % S;
+      mbar_wait(full0 + 8 * s, resident ? 0 : (it / S) & 1);
+      __syncwarp();  // converged again for the .aligned wgmma instructions
+      const uint32_t hi_b = ring + s * kChunkBytes, lo_b = hi_b + W * kChunkK * 4;
+#pragma unroll
+      for (int kk = 0; kk < kChunkK / 8; ++kk) {
+        const int p = kk & 1;
+        // layer 1 into the A fragment: (r0, c), (r0+8, c), (r0, c+4), (r0+8, c+4)
+        const int c = kc * kChunkK + kk * 8 + t;
+        float h00 = 0.f, h10 = 0.f, h01 = 0.f, h11 = 0.f;
+        const float* wa = w1s + c * D;
+        const float* wb = wa + 4 * D;
+        if (D <= kSmallD) {
+#pragma unroll
+          for (int d = 0; d < kSmallD; ++d) {
+            if (d < D) {
+              h00 = fmaf(xr0[d], wa[d], h00);
+              h10 = fmaf(xr1[d], wa[d], h10);
+              h01 = fmaf(xr0[d], wb[d], h01);
+              h11 = fmaf(xr1[d], wb[d], h11);
+            }
+          }
+        } else {
+          for (int d = 0; d < D; ++d) {
+            h00 = fmaf(x0[d], wa[d], h00);
+            h10 = fmaf(x1[d], wa[d], h10);
+            h01 = fmaf(x0[d], wb[d], h01);
+            h11 = fmaf(x1[d], wb[d], h11);
+          }
+        }
+        const float h[4] = {tanhf(h00 + b1s[c]), tanhf(h10 + b1s[c]), tanhf(h01 + b1s[c + 4]),
+                            tanhf(h11 + b1s[c + 4])};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          a_hi[p][q] = tf32_hi(h[q]);
+          a_lo[p][q] = __float_as_uint(h[q] - __uint_as_float(a_hi[p][q]));
+        }
+        fence_a(a_hi[p]);
+        fence_a(a_lo[p]);
+        fence_acc(acc);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+        WgmmaTf32<W>::mma(acc, a_lo[p], sw128_desc(hi_b + kk * 32));
+        WgmmaTf32<W>::mma(acc, a_hi[p], sw128_desc(lo_b + kk * 32));
+        WgmmaTf32<W>::mma(acc, a_hi[p], sw128_desc(hi_b + kk * 32));
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        // the group before this one is done: its A buffer may be rewritten,
+        // and at kk == 0 every wgmma of the previous chunk has read its stage
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        fence_acc(acc);
+        if (kk == 0 && prev_stage >= 0 && !resident) {
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty0 + 8 * prev_stage);
+        }
+      }
+      prev_stage = s;
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc(acc);
+    if (!resident) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * prev_stage);
+    }
+
+    // h2 in place, then the heads
+#pragma unroll
+    for (int j = 0; j < W / 8; ++j) {
+      const float2 b = __ldg(reinterpret_cast<const float2*>(args.b2 + 8 * j + 2 * t));
+      acc[4 * j + 0] = tanhf(acc[4 * j + 0] + b.x);
+      acc[4 * j + 1] = tanhf(acc[4 * j + 1] + b.y);
+      acc[4 * j + 2] = tanhf(acc[4 * j + 2] + b.x);
+      acc[4 * j + 3] = tanhf(acc[4 * j + 3] + b.y);
+    }
+    // one head row w (W floats) dotted with rows r0 and r0 + 8, summed over the quad
+    auto head = [&](const float* w, float& p0, float& p1) {
+      p0 = 0.f;
+      p1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < W / 8; ++j) {
+        const float2 h = __ldg(reinterpret_cast<const float2*>(w + 8 * j + 2 * t));
+        p0 = fmaf(acc[4 * j + 0], h.x, p0);
+        p0 = fmaf(acc[4 * j + 1], h.y, p0);
+        p1 = fmaf(acc[4 * j + 2], h.x, p1);
+        p1 = fmaf(acc[4 * j + 3], h.y, p1);
+      }
+      p0 += __shfl_xor_sync(0xffffffffu, p0, 1);
+      p1 += __shfl_xor_sync(0xffffffffu, p1, 1);
+      p0 += __shfl_xor_sync(0xffffffffu, p0, 2);
+      p1 += __shfl_xor_sync(0xffffffffu, p1, 2);
+    };
+    const long long row_a = row0 + r0, row_b = row_a + 8;
+    float v0, v1;
+    head(args.wv, v0, v1);
+    if (t == 0) {
+      const float bv = __ldg(args.bv);
+      if (row_a < R) args.v_out[row_a] = v0 + bv;
+      if (row_b < R) args.v_out[row_b] = v1 + bv;
+    }
+    for (int a = 0; a < A; ++a) {
+      float m0, m1, s0, s1;
+      head(args.wm + (size_t)a * W, m0, m1);
+      head(args.ws + (size_t)a * W, s0, s1);
+      if (t == 0) {
+        const float bm = __ldg(args.bm + a), bs = __ldg(args.bs + a);
+        const float mm[2] = {m0 + bm, m1 + bm}, ss[2] = {s0 + bs, s1 + bs};
+        const long long rows[2] = {row_a, row_b};
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          if (rows[q] >= R) continue;
+          float sigma = softplus(ss[q]) * args.sigma_scale + args.sigma_floor;
+          if (sigma > args.sigma_max) sigma = args.sigma_max;  // min() that keeps a NaN
+          float mu = mm[q];
+          if (args.sigma_relative) mu = mu * sigma;
+          args.mu_out[rows[q] * A + a] = mu;
+          args.sigma_out[rows[q] * A + a] = sigma;
         }
       }
     }
-#pragma unroll
-    for (int r = 0; r < kRowsPerThread; ++r) h2[(r0 + r) * W + j] = tanhf(acc[r] + b2s[j]);
-    __syncthreads();
-
-    // heads: one warp-shuffle dot product per (row, output)
-    for (int o = warp; o < kRows * H; o += nwarps) {
-      const int r = o / H, h = o - r * H;
-      float p = 0.f;
-      for (int i = lane; i < W; i += 32) p = fmaf(h2[r * W + i], hs[h * W + i], p);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) p += __shfl_xor_sync(0xffffffffu, p, off);
-      if (lane == 0) outs[o] = p + hb[h];
-    }
-    __syncthreads();
-
-    for (int r = tid; r < kRows; r += blockDim.x) {
-      const long long row = row0 + r;
-      if (row < R) v_out[row] = outs[r * H];
-    }
-    for (int e = tid; e < kRows * A; e += blockDim.x) {
-      const int r = e / A, a = e - r * A;
-      const long long row = row0 + r;
-      if (row < R) {
-        float sigma = softplus(outs[r * H + 1 + A + a]) * sigma_scale + sigma_floor;
-        if (sigma > sigma_max) sigma = sigma_max;  // min() that keeps a NaN
-        float mu = outs[r * H + 1 + a];
-        if (sigma_relative) mu = mu * sigma;
-        mu_out[row * A + a] = mu;
-        sigma_out[row * A + a] = sigma;
-      }
-    }
-    __syncthreads();
   }
 }
 
-}  // namespace
-
-extern "C" int mlp_forward(
-    const float* obs, const float* w1, const float* b1, const float* w2,
-    const float* b2, const float* wv, const float* bv, const float* wm,
-    const float* bm, const float* ws, const float* bs, float* v_out,
-    float* mu_out, float* sigma_out, int R, int D, int W, int A,
-    float sigma_scale, float sigma_floor, float sigma_max, int sigma_relative,
-    void* stream) {
-  if (R <= 0 || D <= 0 || A <= 0 || W < 32 || W > kMaxWidth || W % 32 != 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const int H = 1 + 2 * A;
+template <int W>
+int launch(const Args& args, cudaStream_t stream) {
+  constexpr int kChunks = W / kChunkK;
+  constexpr size_t kChunkBytes = 2u * W * kChunkK * sizeof(float);
   int device = 0, sms = 0, max_smem = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return (int)err;
@@ -208,29 +390,51 @@ extern "C" int mlp_forward(
   if (err != cudaSuccess) return (int)err;
   err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return (int)err;
-  auto smem_for = [&](int kc) {
-    return sizeof(float) * ((size_t)2 * kRows * W + (size_t)kc * (W + 1) + (size_t)D * W +
-                            2 * W + (size_t)H * W + H + (size_t)kRows * D + (size_t)kRows * H);
-  };
-  // the whole of W2 where it fits, else chunks of kChunk (or 32) of its rows
-  int kc = W;
-  if (smem_for(kc) > (size_t)max_smem) kc = W < kChunk ? W : kChunk;
-  if (smem_for(kc) > (size_t)max_smem) kc = 32;
-  const size_t smem = smem_for(kc);
-  if (smem > (size_t)max_smem) return (int)cudaErrorInvalidValue;
-  const int threads = kGroups * W;
-  err = cudaFuncSetAttribute(mlp_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  // the ring takes what W1, b1 and the x tile leave, up to all of W2
+  const size_t fixed = 1024 + sizeof(float) * ((size_t)W * args.D + W + (size_t)kTileRows * args.D);
+  int stages = kChunks;
+  while (stages > 0 && fixed + stages * (kChunkBytes + 16) > (size_t)max_smem) --stages;
+  if (stages == 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = fixed + stages * (kChunkBytes + 16);
+  Args a = args;
+  a.stages = stages;
+  err = cudaFuncSetAttribute(mlp_forward_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mlp_forward_kernel, threads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mlp_forward_kernel<W>, kThreads,
+                                                      smem);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int n_tiles = (R + kRows - 1) / kRows;
+  const int n_tiles = (args.R + kTileRows - 1) / kTileRows;
   const int blocks = n_tiles < sms * per_sm ? n_tiles : sms * per_sm;
-  mlp_forward_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-      obs, w1, b1, w2, b2, wv, bv, wm, bm, ws, bs, v_out, mu_out, sigma_out, R, D, W, A,
-      sigma_scale, sigma_floor, sigma_max, sigma_relative, kc);
+  mlp_forward_kernel<W><<<blocks, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int mlp_forward(
+    const float* obs, const float* w1, const float* b1, const float* w2img,
+    const float* b2, const float* wv, const float* bv, const float* wm,
+    const float* bm, const float* ws, const float* bs, float* v_out,
+    float* mu_out, float* sigma_out, int R, int D, int W, int A,
+    float sigma_scale, float sigma_floor, float sigma_max, int sigma_relative,
+    void* stream) {
+  if (R <= 0 || D <= 0 || A <= 0) return (int)cudaErrorInvalidValue;
+  const Args args{obs, w2img, w1, b1, b2, wv, bv, wm, bm, ws, bs, v_out, mu_out, sigma_out,
+                  R, D, A, sigma_scale, sigma_floor, sigma_max, sigma_relative, 0};
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (W) {
+    case 32: return launch<32>(args, s);
+    case 64: return launch<64>(args, s);
+    case 96: return launch<96>(args, s);
+    case 128: return launch<128>(args, s);
+    case 160: return launch<160>(args, s);
+    case 192: return launch<192>(args, s);
+    case 224: return launch<224>(args, s);
+    case 256: return launch<256>(args, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* error_string(int status) {

@@ -7,10 +7,11 @@ interface, bound with ctypes:
          -Xcompiler -fPIC -o build/marlpde_tpu_torch/lib<name>_<hash>.so <name>.cu
 
 The library is built at first use and cached under ``build/`` at the root of
-the checkout, keyed by a hash of the source and the flags, so a fresh checkout
-builds everything on its first call and an edited source is rebuilt.  Nothing
-is compiled while a module is imported.  ``build_all`` starts one nvcc per
-missing source at once, so a cold checkout pays for the slowest source only.
+the checkout, keyed by a hash of the source, every header under ``csrc/`` and
+the flags, so a fresh checkout builds everything on its first call and an
+edited source or header is rebuilt.  Nothing is compiled while a module is
+imported.  ``build_all`` starts one nvcc per missing source at once, so a
+cold checkout pays for the slowest source only.
 """
 
 from __future__ import annotations
@@ -47,8 +48,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 

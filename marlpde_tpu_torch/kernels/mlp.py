@@ -8,6 +8,13 @@ raising.  The tensor's device alone picks between them.  The kernel computes
 the full acting forward, including the sigma cap's forward value and the
 ``sigma_relative`` mean; the losses differentiate the module itself, so the
 op needs no backward.
+
+The kernel runs layer 2 on the tensor cores in 3xTF32.  ``split_tf32`` is the
+split it uses, and ``mlp_forward_tf32`` a plain emulation of its arithmetic
+(the CPU tests hold both against the JAX package).  The kernel reads W2 as
+``w2_image``, built once per parameter version: the wrapper keeps it on the
+module, keyed on W2's storage and version counter, which every in-place
+update (the optimizer's step, ``load_state_dict``) bumps.
 """
 
 from __future__ import annotations
@@ -22,8 +29,77 @@ from marlpde_tpu_torch.kernels import build
 # kernel launches since the last reset; incremented only where the CUDA kernel
 # is launched
 launches = 0
+# W2 images built for the kernel since the last reset (once per parameter
+# version); not kernel launches
+w2_splits = 0
 
-MAX_WIDTH = 256     # csrc/mlp.cu kMaxWidth: 4 * width threads, at most 1024 a block
+MAX_WIDTH = 256     # csrc/mlp.cu kMaxWidth: the widest wgmma (m64n256)
+CHUNK_K = 32        # csrc/mlp.cu kChunkK: input units of one W2 chunk
+
+
+def split_tf32(w):
+    """float32 ``w`` -> (hi, lo) with hi = w rounded to TF32 (10 mantissa bits,
+    to nearest, ties away from zero, as ``cvt.rna.tf32.f32``) and lo = w - hi,
+    so hi + lo == w exactly.  Where rounding would overflow to infinity, hi is
+    w truncated instead; infinities and NaNs give (w, 0)."""
+    if w.dtype != torch.float32:
+        raise TypeError(f"split_tf32: takes float32, got {w.dtype}")
+    bits = w.contiguous().view(torch.int32)
+    rounded = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    truncated = (bits & -0x2000).view(torch.float32)
+    finite = torch.isfinite(w)
+    hi = torch.where(finite, torch.where(torch.isfinite(rounded), rounded, truncated), w)
+    lo = torch.where(finite, w - hi, torch.zeros_like(w))
+    return hi, lo
+
+
+def _tf32_truncate(x):
+    """What the tensor cores read of a float32 operand: its top 19 bits."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def mlp_forward_tf32(obs, net, products: int = 3):
+    """Plain emulation of the kernel's arithmetic: layer 1 and the heads in
+    float32, layer 2 from TF32 operands with exact products and float32 sums,
+    as ``products`` = 3 (3xTF32: lo*hi + hi*lo + hi*hi) or 1 (plain TF32)."""
+    if products not in (1, 3):
+        raise ValueError(f"mlp_forward_tf32: products must be 1 or 3, got {products}")
+    lin1, lin2 = net.hidden
+    h1 = torch.tanh(lin1(obs))
+    a_hi, a_lo = split_tf32(h1)
+    b_hi, b_lo = split_tf32(lin2.weight)
+    acc = a_hi @ b_hi.T
+    if products == 3:
+        acc = _tf32_truncate(a_lo) @ b_hi.T + a_hi @ _tf32_truncate(b_lo).T + acc
+    return net.heads(torch.tanh(acc + lin2.bias))
+
+
+def w2_image(w2):
+    """W2 (W, W) in nn.Linear's layout -> the kernel's image of it, (W/32, 2,
+    W, 32) float32: chunk kc, then hi and lo of ``split_tf32``, then row n of
+    input units 32 kc .. 32 kc + 31, whose 16-byte group j (4 units) sits at
+    j ^ (n % 8): the 128-byte swizzle of a K-major wgmma operand."""
+    W = w2.shape[0]
+    hi, lo = split_tf32(w2)
+    parts = torch.stack([hi, lo]).view(2, W, W // CHUNK_K, 8, 4).permute(2, 0, 1, 3, 4)
+    n = torch.arange(W, device=w2.device)
+    group = torch.arange(8, device=w2.device)[None, :] ^ (n[:, None] % 8)   # (n, slot) -> j
+    img = torch.gather(parts, 3, group[None, None, :, :, None].expand(parts.shape))
+    return img.reshape(W // CHUNK_K, 2, W, CHUNK_K)
+
+
+def _cached_w2_image(net):
+    """``w2_image`` of the net's W2, rebuilt when W2's storage or version changes."""
+    global w2_splits
+    w2 = net.hidden[1].weight
+    key = (w2.data_ptr(), w2._version, w2.device)
+    cached = getattr(net, "_mlp_w2_image", None)
+    if cached is None or cached[0] != key:
+        with torch.no_grad():
+            cached = (key, w2_image(w2.detach()))
+        net._mlp_w2_image = cached
+        w2_splits += 1
+    return cached[1]
 
 
 @lru_cache(maxsize=None)
@@ -61,7 +137,10 @@ def mlp_forward(obs, net):
                          f"n_hidden={net.n_hidden}, width={W}, R={R}")
     if not obs.is_contiguous() or not all(t.is_contiguous() for t in params):
         raise ValueError("mlp_forward: obs and parameters must be contiguous")
+    if any(t.data_ptr() % 8 for t in params):
+        raise ValueError("mlp_forward: parameters must be 8-byte aligned (float2 loads)")
     lib = _library()
+    params[2] = _cached_w2_image(net)       # W2 as the kernel reads it
     V = torch.empty(R, dtype=obs.dtype, device=obs.device)
     mu = torch.empty(R, A, dtype=obs.dtype, device=obs.device)
     sigma = torch.empty(R, A, dtype=obs.dtype, device=obs.device)

@@ -96,6 +96,10 @@ class VracerNet(nn.Module):
         h = obs
         for lin in self.hidden:
             h = torch.tanh(lin(h))
+        return self.heads(h)
+
+    def heads(self, h):
+        """(V, mu, sigma) from the last hidden activation ``h``."""
         v = self.value(h)[..., 0]
         mu = self.mu(h)
         raw = self.sigma(h)

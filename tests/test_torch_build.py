@@ -1,6 +1,7 @@
 """The kernel build layer on the CPU, with a stand-in for nvcc: ``build_all``
 starts one compiler per missing source at once, keeps each ptxas report,
-reuses the hash-keyed cache, and names the source that failed."""
+reuses the hash-keyed cache (rebuilding after an edit of the source or of a
+header under ``csrc/``), and names the source that failed."""
 
 import time
 
@@ -60,3 +61,20 @@ def test_build_all_names_the_source_that_failed(fake_build):
     with pytest.raises(RuntimeError, match=r"nvcc failed for bad\.cu \(exit 2\)"):
         build.build_all(("good", "bad"))
     assert build.library_path("good").exists() and not build.library_path("bad").exists()
+
+
+def test_an_edited_header_builds_anew(fake_build):
+    """A header under csrc/ (the MLP kernel includes wgmma_tf32.cuh) is part of
+    every library's cache key."""
+    (fake_build / "k.cu").write_text('#include "common.cuh"\n')
+    (fake_build / "common.cuh").write_text("// v1\n")
+    build.build_all(("k",))
+    first = build.library_path("k")
+    assert first.exists()
+    (fake_build / "common.cuh").write_text("// v2\n")
+    second = build.library_path("k")
+    assert second != first and not second.exists()
+    build.build_all(("k",))
+    assert second.exists()
+    (fake_build / "other.cuh").write_text("// a new header\n")
+    assert build.library_path("k") not in (first, second)

@@ -65,8 +65,10 @@ def test_abcn_kernel_refuses_what_it_does_not_take(cuda):
 @pytest.mark.parametrize("mu_param,sigma_max", [("absolute", np.inf), ("absolute", 0.5),
                                                 ("sigma_relative", np.inf),
                                                 ("sigma_relative", 0.5)])
-@pytest.mark.parametrize("R", [32768, 1001])
+@pytest.mark.parametrize("R", [1, 63, 64, 65, 127, 1001, 32768])
 def test_mlp_kernel_matches_module(cuda, mu_param, sigma_max, R):
+    """Row counts on both sides of the 64-row warpgroup and 128-row block
+    tiles: the last tile is masked."""
     g = torch.Generator().manual_seed(R)
     net = networks.VracerNet(3, 1, width=128, mu_param=mu_param, sigma_max=sigma_max,
                              device=cuda)
@@ -84,13 +86,13 @@ def test_mlp_kernel_matches_module(cuda, mu_param, sigma_max, R):
 
 
 @pytest.mark.parametrize("mu_param", ["absolute", "sigma_relative"])
-@pytest.mark.parametrize("width,obs_dim,act_dim", [(32, 3, 1), (128, 3, 1), (160, 3, 1),
-                                                   (256, 3, 1), (192, 32, 32),
-                                                   (256, 32, 32)])
+@pytest.mark.parametrize("obs_dim,act_dim", [(3, 1), (32, 32)])
+@pytest.mark.parametrize("width", range(32, 257, 32))
 def test_mlp_kernel_widths(cuda, width, obs_dim, act_dim, mu_param):
-    """Every width the presets use (32, 128, 256), one that is no power of two,
-    and the single-agent burger shape (32 obs, 32 actions), whose heads leave
-    no room for the whole of W2 even at width 192."""
+    """Every width the kernel takes (one wgmma width each; W2 resident up to
+    160, streamed above), at the burger-marl shape and at the single-agent
+    burger shape (32 obs, 32 actions), whose W1 and x tile leave the W2 ring
+    fewer stages."""
     g = torch.Generator().manual_seed(width)
     net = networks.VracerNet(obs_dim, act_dim, width=width, mu_param=mu_param, device=cuda)
     with torch.no_grad():
@@ -102,6 +104,47 @@ def test_mlp_kernel_widths(cuda, width, obs_dim, act_dim, mu_param):
         for o, r in zip(out, net(x)):
             assert o.shape == r.shape
             # float32 sums of up to 256 terms in another order than cuBLAS
+            assert (o - r).abs().max().item() <= 2e-5
+
+
+def _mlp_net(cuda, width, seed):
+    g = torch.Generator().manual_seed(seed)
+    net = networks.VracerNet(3, 1, width=width, device=cuda)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.copy_(torch.randn(p.shape, generator=g).to(cuda) * (0.5 / np.sqrt(p.shape[-1])))
+    return net, torch.randn(5000, 3, generator=g).to(cuda)
+
+
+@pytest.mark.parametrize("width", [128, 256])
+def test_mlp_kernel_gives_the_same_bits_twice(cuda, width):
+    net, x = _mlp_net(cuda, width, 11)
+    with torch.no_grad():
+        first = mlp.mlp_forward(x, net)
+        second = mlp.mlp_forward(x, net)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("width", [128, 256])
+def test_mlp_kernel_follows_w2_updated_in_place(cuda, width):
+    """The split of W2 is cached per parameter version: an in-place update of
+    W2 (by hand, then by an Adam step) between two calls must reach the kernel
+    as it reaches the module."""
+    net, x = _mlp_net(cuda, width, 12)
+    with torch.no_grad():
+        before = mlp.mlp_forward(x, net)
+        net.hidden[1].weight.add_(0.05)
+        after = mlp.mlp_forward(x, net)
+        ref = net(x)
+    assert (before[0] - ref[0]).abs().max().item() > 1e-3
+    for o, r in zip(after, ref):
+        assert (o - r).abs().max().item() <= 2e-5
+    opt = torch.optim.Adam(net.parameters(), lr=0.05)
+    net(x)[0].square().mean().backward()
+    opt.step()
+    with torch.no_grad():
+        for o, r in zip(mlp.mlp_forward(x, net), net(x)):
             assert (o - r).abs().max().item() <= 2e-5
 
 
