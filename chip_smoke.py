@@ -6,12 +6,16 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 
 1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
 2. build both CUDA kernels from marlpde_tpu_torch/csrc (one nvcc per source,
-   started together; sm_90a), with each one's ptxas registers and spills, and
-   the count of tensor-core instructions (HGMMA) in the MLP library's SASS;
+   started together; sm_90a), with ptxas's registers and spills of each ABCN
+   instantiation (N=32 the main path's) and of the MLP kernel, and the count
+   of tensor-core instructions (HGMMA) in the MLP library's SASS;
 3. [kernels] each kernel against its plain PyTorch version on the card at the
    shapes of the paths below, with CUDA-event times (median of 20 calls) of
-   both: ABCN at the flagship batch, the MLP at widths 128 and 256 in both
-   mu_param modes and at the acting and insert row counts of the CLI;
+   both and the share of the card's bound (the least time for the bytes the
+   call must move or the operations it must do): ABCN at the flagship batch
+   (B=1024), the CLI's (B=10) and at N=64, the MLP at widths 128 and 256 in
+   both mu_param modes and at the acting and insert row counts of the CLI;
+   and the timing floor, an empty kernel timed the same way;
 4. [main] three generations of the flagship fused episode-mode burger-marl
    training (1024 episodes of 500 macro-steps, 32 agents, 200 VRACER updates
    each) through registry.make_env / trainer.train, with launch counts;
@@ -51,6 +55,12 @@ FLAGSHIP = dict(N_dns=512, grid_size=32, num_actions=32, num_agents=32, dt=1e-3,
 NUM_ENVS = 1024
 GENERATIONS = 3
 ABCN_TOL = 1e-5     # relative to each field's max |value|
+# the card's peaks (NVIDIA's H100 SXM data sheet, at 700 W): the bound of a
+# kernel is the larger of its bytes over HBM_BPS and its operations over the
+# peak of their type
+HBM_BPS = 3.35e12
+FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 MLP_TOL = 2e-5      # absolute, as tests/test_pallas.py holds the Pallas MLP
 FAST_OFF_TOL = 1e-4  # relative to each tensor's max |value|: float32, two solvers
 # the run-918 flagship (scripts/tpu_flagship_918.sh)
@@ -88,13 +98,76 @@ def median_ms(fn, n=20):
     return sorted(times)[n // 2]
 
 
+def abcn_bound(B, N, n_intermediate):
+    """(bound in ms, what bounds it, direct-DFT ms) of one ABCN call.  Bytes:
+    the 7 (B, N) fields and nu read once, the 7 outputs written once, and the
+    kernel's lane tables ((2 log2 N + 1) N floats, N ints).  Operations, per
+    env and sub-step: two radix-2 FFTs of 5 N log2 N float32 flops each and
+    28 N for q, the update, ek and the 1/N; the direct DFT that the TPU kernel
+    does would be 8 N^2 for the two transforms."""
+    L = N.bit_length() - 1
+    nbytes = 4 * (7 * B * N + B) + 4 * 7 * B * N + 4 * ((2 * L + 1) * N + N)
+    flops = B * n_intermediate * (10 * N * L + 28 * N)
+    t_bytes, t_ops = nbytes / HBM_BPS, flops / FP32_FLOPS
+    direct = B * n_intermediate * (8 * N * N + 28 * N) / FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", 1e3 * direct
+
+
+def mlp_bound(R, obs, width, act):
+    """(bound in ms, what bounds it) of one MLP call: the three TF32 tensor-core
+    products of 2 R W^2 flops each (3xTF32 layer 2) at the TF32 peak, against
+    x, the weights and the 3 outputs moved once (layer 1 and the heads, 2 R W
+    (obs + 2 act + 1) float32 flops, take less time on their own units)."""
+    nbytes = 4 * (R * obs + obs * width + width + width * width + width
+                  + width * (2 * act + 1) + 2 * act + 1 + R * (2 * act + 1))
+    t_bytes = nbytes / HBM_BPS
+    t_ops = max(3 * 2 * R * width * width / TF32_FLOPS,
+                2 * R * width * (obs + 2 * act + 1) / FP32_FLOPS)
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _abcn_row(args, kw, label):
+    """The ABCN kernel against its plain version on ``args``: the error
+    relative to each field's max |value|, kernel and plain ms, the bound."""
+    import torch
+    from marlpde_tpu_torch.kernels import abcn
+
+    B, N = args[0].shape
+    out = abcn.abcn_macro_step(*args, **kw)
+    ref = abcn.abcn_macro_step_reference(*args, **kw)
+    torch.cuda.synchronize()
+    check(all(o.shape == (B, N) and torch.isfinite(o).all() for o in out),
+          f"abcn output at {label}")
+    abs_err = max((o - r).abs().max().item() for o, r in zip(out, ref))
+    rel_err = max(((o - r).abs().max() / r.abs().max().clamp(min=1.0)).item()
+                  for o, r in zip(out, ref))
+    ms = median_ms(lambda: abcn.abcn_macro_step(*args, **kw))
+    plain_ms = median_ms(lambda: abcn.abcn_macro_step_reference(*args, **kw))
+    bound_ms, bound_by, direct_ms = abcn_bound(B, N, kw["n_intermediate"])
+    print(f"[kernels] abcn_macro_step {label} B={B} N={N} n_intermediate="
+          f"{kw['n_intermediate']}: max abs err {abs_err:.3e}, {rel_err:.3e} relative to "
+          f"each field's max |value| (tolerance {ABCN_TOL:g} relative: float32 radix-2 "
+          f"FFTs in another order than torch.fft); kernel {ms:.5f} ms, plain {plain_ms:.4f} "
+          f"ms; bound {bound_ms:.6f} ms ({bound_by}; a direct DFT's operations "
+          f"{direct_ms:.6f} ms), {100 * bound_ms / ms:.2f}% of it; no single PyTorch call "
+          f"computes this function")
+    check(rel_err <= ABCN_TOL, f"abcn kernel disagrees with its plain version at {label}: "
+                               f"{rel_err:.3e}")
+    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
 def phase_kernels(env, dev):
-    """Each kernel against its plain version at flagship shapes."""
+    """Each kernel against its plain version at the paths' shapes."""
+    import numpy as np
     import torch
     from marlpde_tpu_torch.envs import burger_env, burger_fast
-    from marlpde_tpu_torch.kernels import abcn, mlp
+    from marlpde_tpu_torch.kernels import mlp
     from marlpde_tpu_torch.rl import networks
 
+    floor_ms = median_ms(lambda: torch.cuda._sleep(0))
+    print(f"[kernels] timing floor: an empty kernel (torch.cuda._sleep(0)) times "
+          f"{floor_ms:.5f} ms by the same CUDA-event method")
     cfg = env.cfg
     g = torch.Generator(device=dev).manual_seed(1)
     st, _ = burger_fast.reset(cfg, env.consts, g, torch.arange(NUM_ENVS, device=dev))
@@ -105,25 +178,25 @@ def phase_kernels(env, dev):
     args = (st.u, st.v_re, st.v_im, st.fn_re, st.fn_im, st.nu,
             af.real.contiguous(), af.imag.contiguous())
     kw = dict(n_intermediate=cfg.n_intermediate, dt=cfg.dt, dx=cfg.les_solver.grid.dx)
-    out = abcn.abcn_macro_step(*args, **kw)
-    ref = abcn.abcn_macro_step_reference(*args, **kw)
-    torch.cuda.synchronize()
-    check(all(o.shape == (NUM_ENVS, cfg.grid_size) for o in out), "abcn output shape")
-    abs_err = max((o - r).abs().max().item() for o, r in zip(out, ref))
-    rel_err = max(((o - r).abs().max() / r.abs().max().clamp(min=1.0)).item()
-                  for o, r in zip(out, ref))
-    ms = median_ms(lambda: abcn.abcn_macro_step(*args, **kw))
-    plain_ms = median_ms(lambda: abcn.abcn_macro_step_reference(*args, **kw))
-    print(f"[kernels] abcn_macro_step B={NUM_ENVS} N={cfg.grid_size} "
-          f"n_intermediate={cfg.n_intermediate}: max abs err {abs_err:.3e}, "
-          f"{rel_err:.3e} relative to each field's max |value| (tolerance {ABCN_TOL:g} "
-          f"relative: float32 direct DFT sums in another order than torch.fft); "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    check(rel_err <= ABCN_TOL, f"abcn kernel disagrees with its plain version: {rel_err:.3e}")
+    flagship = _abcn_row(args, kw, "fused flagship")
+    cli = _abcn_row([a[:10].contiguous() for a in args], kw, "run-918 CLI")
+    # N=64, off the main path: one env a block, a stage through shared memory
+    n64 = torch.Generator().manual_seed(64)
+    u = torch.randn(NUM_ENVS, 64, generator=n64) * 0.5 + 1.0
+    v, D = torch.fft.fft(u), torch.fft.fft(0.5 * u * u)
+    k = torch.fft.fftfreq(64, 1.0 / 64)
+    args64 = [t.contiguous().to(dev) for t in (
+        u, v.real, v.imag, -k * D.imag, k * D.real, torch.full((NUM_ENVS, 1), 0.02),
+        torch.randn(NUM_ENVS, 64, generator=n64) * 0.1,
+        torch.randn(NUM_ENVS, 64, generator=n64) * 0.1)]
+    wide = _abcn_row(args64, dict(kw, dx=float(2 * np.pi / 64)), "off the main path")
     results = [dict(name="abcn_macro_step", route="cuda",
                     source="marlpde_tpu_torch/csrc/abcn.cu",
-                    replaces="marlpde_tpu/ops/abcn_pallas.py:105",
-                    max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)]
+                    replaces="marlpde_tpu/ops/abcn_pallas.py:105", library_ms=None,
+                    **flagship,
+                    **{f"{key}_b10": cli[key] for key in ("ms", "plain_ms", "bound_ms")},
+                    **{f"{key}_n64": wide[key] for key in ("ms", "plain_ms", "bound_ms")},
+                    floor_ms=floor_ms)]
 
     # flagship acting rows (1024 envs x 32 agents), then the CLI's acting rows
     # (10 x 32) and insert rows (10 x 500 x 32)
@@ -145,14 +218,17 @@ def phase_kernels(env, dev):
                   "mlp output shape")
             ms = median_ms(lambda: mlp.mlp_forward(x, net))
             plain_ms = median_ms(lambda: net(x))
+        bound_ms, bound_by = mlp_bound(R, cfg.obs_dim, width, cfg.actions_per_agent)
         print(f"[kernels] mlp_forward R={R} obs={cfg.obs_dim} W={width} A=1 "
               f"mu_param={mu_param}: max abs err {err:.3e} (tolerance {MLP_TOL:g}: "
               f"3xTF32 tensor-core sums of {width} terms against cuBLAS's float32); "
-              f"kernel {ms:.4f} ms, plain module {plain_ms:.4f} ms")
+              f"kernel {ms:.4f} ms, plain module {plain_ms:.4f} ms; bound {bound_ms:.5f} ms "
+              f"({bound_by}), {100 * bound_ms / ms:.1f}% of it; no single PyTorch call "
+              f"computes this function")
         check(err <= MLP_TOL, f"mlp kernel disagrees with VracerNet (W={width}, "
                               f"{mu_param}): {err:.3e}")
         mlp_rows.append(dict(R=R, width=width, mu_param=mu_param, err=err, ms=ms,
-                             plain_ms=plain_ms))
+                             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by))
     for width in (128, 256):
         w2 = torch.randn(width, width, generator=g, device=dev)
         print(f"[kernels] w2_image W={width} (the 3xTF32 split of W2, once per parameter "
@@ -164,8 +240,11 @@ def phase_kernels(env, dev):
                         max_abs_err=max(r["err"] for r in mlp_rows),
                         ms=flag[128, "absolute"]["ms"],
                         plain_ms=flag[128, "absolute"]["plain_ms"],
+                        bound_ms=flag[128, "absolute"]["bound_ms"],
+                        bound_by=flag[128, "absolute"]["bound_by"], library_ms=None,
                         ms_w256=flag[256, "absolute"]["ms"],
-                        plain_ms_w256=flag[256, "absolute"]["plain_ms"]))
+                        plain_ms_w256=flag[256, "absolute"]["plain_ms"],
+                        bound_ms_w256=flag[256, "absolute"]["bound_ms"]))
     return results
 
 
@@ -460,8 +539,24 @@ def phase_fast_off(dev):
     check(torch.equal(trajs["off"]["truncated"], trajs["auto"]["truncated"]), "truncated flags")
     print(f"[fast-off] B=64, 20 macro-steps x 10 sub-steps, N_dns 512, 32 agents: max err "
           f"relative to each tensor's max |value| {json.dumps(worst)} (tolerance "
-          f"{FAST_OFF_TOL:g}: float32 torch.fft against the kernel's direct DFT sums)")
+          f"{FAST_OFF_TOL:g}: float32 torch.fft against the kernel's radix-2 FFTs)")
     check(max(worst.values()) <= FAST_OFF_TOL, f"fast='off' and 'auto' disagree: {worst}")
+
+
+def ptxas_by_instantiation(log):
+    """{log2 N: (registers, spill store bytes, spill load bytes)} of each
+    instantiation of the ABCN kernel template in ptxas's -v report."""
+    import re
+    out = {}
+    for block in log.split("Compiling entry function")[1:]:
+        n = re.search(r"abcn_macro_step_kernelILi(\d+)E", block)
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+        if n and regs and spill:
+            out[int(n.group(1))] = (int(regs.group(1)), int(spill.group(1)),
+                                    int(spill.group(2)))
+    check(sorted(out) == list(range(11)), f"ptxas report of abcn: {sorted(out)}")
+    return out
 
 
 def main() -> int:
@@ -489,9 +584,19 @@ def main() -> int:
     print(f"[build] abcn.cu and mlp.cu built (in parallel) and loaded in "
           f"{time.perf_counter() - t0:.2f} s")
     for name, log in build.build_logs.items():
+        if name == "abcn":
+            continue
         regs = [ln.strip() for ln in log.splitlines()
                 if "registers" in ln or "spill" in ln or "Performance Loss" in ln]
         print(f"[build] {name}: {' | '.join(regs)}")
+    abcn_ptxas = ptxas_by_instantiation(build.build_logs["abcn"])
+    print("[build] abcn: " + ", ".join(
+        f"N={1 << n}: {r} registers, {st}/{ld} bytes spill stores/loads"
+        for n, (r, st, ld) in sorted(abcn_ptxas.items())))
+    regs32, st32, ld32 = abcn_ptxas[5]
+    print(f"[build] abcn N=32 (the main path's instantiation): {regs32} registers, "
+          f"{st32} bytes spill stores, {ld32} bytes spill loads")
+    check(st32 == ld32 == 0, "the ABCN kernel spills at N=32")
     sass = subprocess.run([os.path.join(os.path.dirname(build._nvcc()), "cuobjdump"), "-sass",
                            str(build.library_path("mlp"))], capture_output=True, text=True,
                           check=True).stdout

@@ -16,12 +16,15 @@ def set_float32_precision() -> None:
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` picks the card when there is one, else the CPU.  A CUDA device
-    asked for by name on a machine without one raises: nothing moves to the
-    CPU quietly."""
+    """``None`` means the card.  Without one it raises, as does a CUDA device
+    asked for by name: nothing moves to the CPU quietly.  A caller that wants
+    the CPU passes ``device="cpu"``."""
     set_float32_precision()
     if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+        if not torch.cuda.is_available():
+            raise RuntimeError("torch.cuda is not available: the port runs on the card; "
+                               'pass device="cpu" to run on the CPU')
+        device = "cuda"
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but torch.cuda is not available")

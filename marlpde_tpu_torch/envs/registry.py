@@ -45,11 +45,12 @@ def general_burger_ok(cfg: burger_env.BurgerEnvConfig) -> bool:
 def make_burger_env(cfg: burger_env.BurgerEnvConfig = None, n_dns: int = 1,
                     pool=None, dtype=torch.float32, fast: str = "auto",
                     device=None, **overrides) -> Env:
-    """The Burgers env on ``device``.  ``fast`` picks the rollout backend for
-    configs the whole-batch env implements: 'auto' and 'pallas' attach the
-    whole-batch pair, whose ABCN op launches the CUDA kernel on the card and
-    runs its plain version on the CPU; 'off' keeps the general per-env env
-    (the torch.fft solver), as every other config does."""
+    """The Burgers env on ``device`` (None: the card, raising where there is
+    none; a given ``pool`` keeps its own device).  ``fast`` picks the rollout
+    backend for configs the whole-batch env implements: 'auto' and 'pallas'
+    attach the whole-batch pair, whose ABCN op launches the CUDA kernel on the
+    card and runs its plain version on the CPU; 'off' keeps the general
+    per-env env (the torch.fft solver), as every other config does."""
     if cfg is None:
         cfg = burger_env.BurgerEnvConfig(**overrides)
     elif overrides:

@@ -1,0 +1,77 @@
+"""The port's entry points run on the card unless the caller asks for the CPU:
+``device.resolve_device(None)``, ``registry.make_env`` and ``run.main`` /
+``run.make_workload`` without a device raise where torch.cuda is not
+available, and ``device="cpu"`` runs.  torch.cuda.is_available is patched to
+False, so these hold on a machine with a card too.  No JAX is imported."""
+
+import pytest
+import torch
+
+from marlpde_tpu_torch import device as tdevice
+from marlpde_tpu_torch import run as trun
+from marlpde_tpu_torch.envs import registry
+
+torch.set_num_threads(1)
+
+TINY = ("burger-marl --nagents 4 --specreward --dforce --ic turbulence --NDNS 64 --dt 0.01 "
+        "--T 0.1 --episodelength 5 --numenvs 2 --mbsize 8 --rstart 10 --NE 20 "
+        "--run 997").split()
+ENV_KW = dict(N_dns=64, grid_size=32, num_actions=32, num_agents=4, dt=0.01, T=0.1,
+              nu=0.05, episode_length=5, ic_case="turbulence", spectral_reward=True)
+NO_CARD = "torch.cuda is not available"
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_resolve_device_none_raises_without_a_card(no_card):
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tdevice.resolve_device(None)
+    with pytest.raises(RuntimeError, match=NO_CARD):
+        tdevice.resolve_device()
+
+
+@pytest.mark.parametrize("asked", ["cuda", "cuda:0", torch.device("cuda")])
+def test_resolve_device_cuda_raises_without_a_card(no_card, asked):
+    with pytest.raises(RuntimeError, match=NO_CARD):
+        tdevice.resolve_device(asked)
+
+
+@pytest.mark.parametrize("asked", ["cpu", torch.device("cpu")])
+def test_resolve_device_cpu_runs(no_card, asked):
+    assert tdevice.resolve_device(asked) == torch.device("cpu")
+    assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+
+
+@pytest.mark.parametrize("name", ["burger", "burger-marl"])
+def test_make_env_without_device_raises_without_a_card(no_card, name):
+    with pytest.raises(RuntimeError, match=NO_CARD):
+        registry.make_env(name, **ENV_KW)
+
+
+def test_make_env_on_the_cpu_when_asked(no_card):
+    env = registry.make_env("burger-marl", device="cpu", **ENV_KW)
+    assert env.consts.uu.device == torch.device("cpu") and env.whole_batch
+
+
+def test_make_workload_without_device_raises_without_a_card(no_card):
+    with pytest.raises(RuntimeError, match=NO_CARD):
+        trun.make_workload(trun.build_parser().parse_args(TINY))
+    env, _, _ = trun.make_workload(trun.build_parser().parse_args(TINY), device="cpu")
+    assert env.consts.uu.device == torch.device("cpu")
+
+
+def test_main_without_device_raises_and_writes_nothing(no_card, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match=NO_CARD):
+        trun.main(TINY)
+    assert list(tmp_path.iterdir()) == []
+
+
+def test_main_on_the_cpu_when_asked(no_card, tmp_path, monkeypatch, capsys):
+    monkeypatch.chdir(tmp_path)
+    ts, rep, hist = trun.main(TINY, device="cpu")
+    assert hist["gen"] == [1, 2] and capsys.readouterr().out.count("[trainer] gen ") == 2
+    assert all(p.device == torch.device("cpu") for p in ts.net.parameters())

@@ -36,8 +36,11 @@ def _abcn_inputs(B, N, seed):
             torch.randn(B, N, generator=g) * 0.1, torch.randn(B, N, generator=g) * 0.1]
 
 
-@pytest.mark.parametrize("B,N", [(1024, 32), (1000, 32), (7, 16), (5, 64), (2, 1024)])
+@pytest.mark.parametrize("N", [2, 16, 32, 64, 1024])
+@pytest.mark.parametrize("B", [1, 10, 33, 1000, 1024])
 def test_abcn_kernel_matches_plain_version(cuda, B, N):
+    """Batches that fill no warp, one warp, and end in a ragged warp; N with
+    several envs a warp, one env a warp, and one env across warps."""
     args = [a.to(cuda) for a in _abcn_inputs(B, N, N)]
     kw = dict(n_intermediate=10, dt=1e-3, dx=float(2 * np.pi / N))
     before = abcn.launches
@@ -45,11 +48,37 @@ def test_abcn_kernel_matches_plain_version(cuda, B, N):
     torch.cuda.synchronize()
     assert abcn.launches == before + 1
     ref = abcn.abcn_macro_step_reference(*args, **kw)
-    # direct O(N^2) float32 sums against torch.fft: relative to each field's scale
+    # float32 FFTs in another order than torch.fft: relative to each field's scale
     tol = 2e-6 if N <= 64 else 1e-4
     for o, r in zip(out, ref):
         assert o.shape == r.shape and o.dtype == torch.float32
         assert (o - r).abs().max().item() <= tol * max(1.0, r.abs().max().item())
+
+
+@pytest.mark.parametrize("B,N", [(1024, 32), (10, 32), (33, 64), (3, 1024)])
+def test_abcn_kernel_gives_the_same_bits_twice(cuda, B, N):
+    args = [a.to(cuda) for a in _abcn_inputs(B, N, 5)]
+    kw = dict(n_intermediate=10, dt=1e-3, dx=float(2 * np.pi / N))
+    first = abcn.abcn_macro_step(*args, **kw)
+    second = abcn.abcn_macro_step(*args, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("N", [2, 4, 16, 32, 64])
+@pytest.mark.parametrize("B", [1, 33, 1024])
+def test_abcn_kernel_follows_its_radix2_schedule(cuda, B, N):
+    """The kernel against abcn_macro_step_radix2 on the card: the same stage
+    order, lane pairs, twiddles and bit-reversed order, so they differ only by
+    the kernel's fused multiply-adds.  A wrong permutation or twiddle shows
+    here as an O(1) error."""
+    args = [a.to(cuda) for a in _abcn_inputs(B, N, 2 * N + B)]
+    kw = dict(n_intermediate=10, dt=1e-3, dx=float(2 * np.pi / N))
+    out = abcn.abcn_macro_step(*args, **kw)
+    emu = abcn.abcn_macro_step_radix2(*args, **kw)
+    torch.cuda.synchronize()
+    for o, e in zip(out, emu):
+        assert (o - e).abs().max().item() <= 1e-6 * e.abs().max().item()
 
 
 def test_abcn_kernel_refuses_what_it_does_not_take(cuda):

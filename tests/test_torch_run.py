@@ -45,7 +45,7 @@ def test_parser_flags_defaults_and_choices_match_jax():
 @pytest.mark.parametrize("argv", [RUN_918, BARE], ids=["run-918", "bare"])
 def test_make_workload_matches_jax(argv):
     jenv, jrl, jtc = jrun.make_workload(jrun.build_parser().parse_args(argv))
-    tenv, trl, ttc = trun.make_workload(trun.build_parser().parse_args(argv))
+    tenv, trl, ttc = trun.make_workload(trun.build_parser().parse_args(argv), device="cpu")
     assert dataclasses.asdict(tenv.cfg) == dataclasses.asdict(jenv.cfg)
     assert dataclasses.asdict(trl) == dataclasses.asdict(jrl)
     assert dataclasses.asdict(ttc) == dataclasses.asdict(jtc)
@@ -63,7 +63,7 @@ def _json_lines(out):
 
 def test_tiny_main_trains_resumes_and_prints_one_json_line(tmp_path, monkeypatch, capsys):
     monkeypatch.chdir(tmp_path)
-    ts, rep, hist = trun.main(TINY + ["--NE", "40"])
+    ts, rep, hist = trun.main(TINY + ["--NE", "40"], device="cpu")
     out = capsys.readouterr().out
     assert _json_lines(out) == [{"workload": "burger-marl",
                                  "final_mean_return": hist["mean_return"][-1],
@@ -75,20 +75,21 @@ def test_tiny_main_trains_resumes_and_prints_one_json_line(tmp_path, monkeypatch
     assert {p.name for p in res.iterdir()} >= {"latest.pt", "history.json", "meta.npz",
                                                "replay.pt", "best"}
 
-    ts2, rep2, hist2 = trun.main(TINY + ["--NE", "60", "--resume"])
+    ts2, rep2, hist2 = trun.main(TINY + ["--NE", "60", "--resume"], device="cpu")
     out = capsys.readouterr().out
     assert "[run] continuing from previous run" in out and len(_json_lines(out)) == 1
     assert hist2["gen"] == [1, 2, 3, 4, 5, 6] and hist2["updates"][4:] == [20, 20]
     assert ts2.n_updates == 100 and rep2.cursor == 60
     # the resumed run continues the uninterrupted one exactly
     ts3, rep3, hist3 = trun.main(TINY[:-3] + ["--run", "998", "--serialize-replay",
-                                              "--NE", "60"])
+                                              "--NE", "60"], device="cpu")
     assert hist3["mean_return"] == hist2["mean_return"]
     for a, b in zip(ts2.net.parameters(), ts3.net.parameters()):
         assert torch.equal(a, b)
 
     with pytest.raises(SystemExit, match="mu_param"):
-        trun.main(TINY + ["--NE", "70", "--resume", "--muparam", "sigma_relative"])
+        trun.main(TINY + ["--NE", "70", "--resume", "--muparam", "sigma_relative"],
+                  device="cpu")
 
 
 @pytest.mark.parametrize("argv", [
@@ -100,7 +101,7 @@ def test_tiny_main_trains_resumes_and_prints_one_json_line(tmp_path, monkeypatch
 def test_unported_presets_and_flags_raise(argv, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trun.main(argv)
+        trun.main(argv, device="cpu")
 
 
 def test_parser_accepts_the_jax_flag_surface():
