@@ -14,8 +14,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    both and the share of the card's bound (the least time for the bytes the
    call must move or the operations it must do): ABCN at the flagship batch
    (B=1024), the CLI's (B=10) and at N=64, the MLP at widths 128 and 256 in
-   both mu_param modes and at the acting and insert row counts of the CLI;
-   and the timing floor, an empty kernel timed the same way;
+   both mu_param modes, at the acting and insert row counts of the CLI, and
+   at the KS shapes (obs 32, 16 actions, width 256, sigma_relative, sigma_max
+   5; R=16 acting, R=8000 insert); and the timing floor, an empty kernel timed
+   the same way;
 4. [main] three generations of the flagship fused episode-mode burger-marl
    training (1024 episodes of 500 macro-steps, 32 agents, 200 VRACER updates
    each) through registry.make_env / trainer.train, with launch counts;
@@ -28,14 +30,24 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    and 2500 updates timed apart;
 7. [cli-w256] one generation at the CLI's default width 256;
 8. [fast-off] a deterministic collection through the general per-env env
-   (torch.fft solver) against the whole-batch env (ABCN kernel), same weights.
+   (torch.fft solver) against the whole-batch env (ABCN kernel), same weights;
+9. [cli-test] the run-918 flags with --test, then --test --best, on the
+   [cli] phase's checkpoints (evaluation, the pool sweep, the uncontrolled
+   comparison, makePlot's panels);
+10. [ks] the run-926 KS flags (scripts/tpu_ks_926.sh) through the CLI for 4
+   fused generations of 16 episodes, then --test and --test --best;
+   [ks-breakdown] one generation's collection, insert and 1000 updates;
+11. [ks-agree] a deterministic KS collection on the card against the same on
+   the CPU, same weights.
 
 Launch counts are set to 0 just before each path and read just after; the
-comparisons of a kernel with its plain version are not counted.  Standard
-output ends with one JSON line of kernel results (launches of the [cli]
-path, and of each path under "launches_by_path"), then the contract line
-{"ok": true, "device": {...}}.  Without a CUDA card, or without the package
-beside it, the script exits non-zero and prints no result.
+comparisons of a kernel with its plain version are not counted.  The Burgers
+paths (main, cli, cli_w256, cli_test) must launch both kernels; the KS paths
+(ks, ks_test) the MLP kernel and never the ABCN kernel.  Standard output ends
+with one JSON line of kernel results (launches of the [cli] path, and of each
+path under "launches_by_path"), then the contract line {"ok": true,
+"device": {...}}.  Without a CUDA card, or without the package beside it, the
+script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -67,6 +79,10 @@ FAST_OFF_TOL = 1e-4  # relative to each tensor's max |value|: float32, two solve
 RUN_918 = ("burger-marl --nagents 32 --specreward --dforce --ic turbulence --width 128 "
            "--iex 0.1 --numenvs 10 --mbsize 8 --maxupd 2500 --testepisodes 8 "
            "--rscale cumulative --trust forward --diag").split()
+# the run-926 KS flags (scripts/tpu_ks_926.sh); the DNS pool is 16 rows of N=1024
+RUN_926 = ("ks --N 16 --NA 16 --ndns 16 --sigma-max 5 --iex 0.01 --numenvs 16 --maxupd 1000 "
+           "--fused --testepisodes 16 --run 926").split()
+KS_AGREE_TOL = 1e-4  # relative to each tensor's max |value|: float32, cuFFT against pocketfft
 
 
 def check(cond, msg):
@@ -199,14 +215,19 @@ def phase_kernels(env, dev):
                     floor_ms=floor_ms)]
 
     # flagship acting rows (1024 envs x 32 agents), then the CLI's acting rows
-    # (10 x 32) and insert rows (10 x 500 x 32)
+    # (10 x 32) and insert rows (10 x 500 x 32), then the KS rows of the
+    # run-926 flags: acting (16 envs x 1 agent) and insert (16 x 500)
+    D, A = cfg.obs_dim, cfg.actions_per_agent
+    # (R, obs, actions, width, mu_param, sigma_max, iex)
+    shapes = ([(NUM_ENVS * cfg.num_agents, D, A, w, m, np.inf, 0.1) for w in (128, 256)
+               for m in ("absolute", "sigma_relative")]
+              + [(R, D, A, w, "absolute", np.inf, 0.1) for R in (320, 160000) for w in (128, 256)]
+              + [(R, 32, 16, 256, "sigma_relative", 5.0, 0.01) for R in (16, 8000)])
     mlp_rows = []
-    for R, width, mu_param in [(NUM_ENVS * cfg.num_agents, w, m) for w in (128, 256)
-                               for m in ("absolute", "sigma_relative")] + \
-            [(R, w, "absolute") for R in (320, 160000) for w in (128, 256)]:
-        x = torch.randn(R, cfg.obs_dim, generator=g, device=dev)
-        net = networks.VracerNet(cfg.obs_dim, cfg.actions_per_agent, width=width,
-                                 mu_param=mu_param, device=dev, generator=g)
+    for R, D, A, width, mu_param, sigma_max, iex in shapes:
+        x = torch.randn(R, D, generator=g, device=dev)
+        net = networks.VracerNet(D, A, width=width, mu_param=mu_param, sigma_max=sigma_max,
+                                 init_noise=iex, device=dev, generator=g)
         with torch.no_grad():
             for p in net.parameters():      # non-zero heads, so every output is tested
                 p.add_(torch.randn(p.shape, generator=g, device=dev) * 0.1)
@@ -214,26 +235,27 @@ def phase_kernels(env, dev):
             ref = net(x)
             torch.cuda.synchronize()
             err = max((o - r).abs().max().item() for o, r in zip(out, ref))
-            check(out[0].shape == (R,) and out[1].shape == out[2].shape == (R, 1),
+            check(out[0].shape == (R,) and out[1].shape == out[2].shape == (R, A),
                   "mlp output shape")
             ms = median_ms(lambda: mlp.mlp_forward(x, net))
             plain_ms = median_ms(lambda: net(x))
-        bound_ms, bound_by = mlp_bound(R, cfg.obs_dim, width, cfg.actions_per_agent)
-        print(f"[kernels] mlp_forward R={R} obs={cfg.obs_dim} W={width} A=1 "
-              f"mu_param={mu_param}: max abs err {err:.3e} (tolerance {MLP_TOL:g}: "
+        bound_ms, bound_by = mlp_bound(R, D, width, A)
+        print(f"[kernels] mlp_forward R={R} obs={D} W={width} A={A} mu_param={mu_param} "
+              f"sigma_max={sigma_max:g}: max abs err {err:.3e} (tolerance {MLP_TOL:g}: "
               f"3xTF32 tensor-core sums of {width} terms against cuBLAS's float32); "
               f"kernel {ms:.4f} ms, plain module {plain_ms:.4f} ms; bound {bound_ms:.5f} ms "
               f"({bound_by}), {100 * bound_ms / ms:.1f}% of it; no single PyTorch call "
               f"computes this function")
-        check(err <= MLP_TOL, f"mlp kernel disagrees with VracerNet (W={width}, "
-                              f"{mu_param}): {err:.3e}")
-        mlp_rows.append(dict(R=R, width=width, mu_param=mu_param, err=err, ms=ms,
+        check(err <= MLP_TOL, f"mlp kernel disagrees with VracerNet (R={R}, obs={D}, "
+                              f"W={width}, {mu_param}): {err:.3e}")
+        mlp_rows.append(dict(R=R, D=D, width=width, mu_param=mu_param, err=err, ms=ms,
                              plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by))
     for width in (128, 256):
         w2 = torch.randn(width, width, generator=g, device=dev)
         print(f"[kernels] w2_image W={width} (the 3xTF32 split of W2, once per parameter "
               f"version; torch ops): {median_ms(lambda: mlp.w2_image(w2)):.4f} ms")
     flag = {(r["width"], r["mu_param"]): r for r in mlp_rows if r["R"] == NUM_ENVS * 32}
+    ks = {r["R"]: r for r in mlp_rows if r["D"] == 32}
     results.append(dict(name="mlp_forward", route="cuda",
                         source="marlpde_tpu_torch/csrc/mlp.cu",
                         replaces="marlpde_tpu/ops/mlp_pallas.py:71",
@@ -244,7 +266,9 @@ def phase_kernels(env, dev):
                         bound_by=flag[128, "absolute"]["bound_by"], library_ms=None,
                         ms_w256=flag[256, "absolute"]["ms"],
                         plain_ms_w256=flag[256, "absolute"]["plain_ms"],
-                        bound_ms_w256=flag[256, "absolute"]["bound_ms"]))
+                        bound_ms_w256=flag[256, "absolute"]["bound_ms"],
+                        **{f"{key}_ks_r{R}": ks[R][key] for R in (16, 8000)
+                           for key in ("ms", "plain_ms", "bound_ms")}))
     return results
 
 
@@ -543,6 +567,224 @@ def phase_fast_off(dev):
     check(max(worst.values()) <= FAST_OFF_TOL, f"fast='off' and 'auto' disagree: {worst}")
 
 
+def _main_json(argv, tag):
+    """``run.main(argv)`` with its standard output captured and echoed: returns
+    (what main returns, the one JSON line it printed, the kernel launches)."""
+    from marlpde_tpu_torch import run
+    from marlpde_tpu_torch.kernels import abcn, mlp
+    import torch
+
+    buf = io.StringIO()
+    abcn.launches = 0
+    mlp.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = run.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    for ln in lines:
+        print(f"[{tag}] | {ln}")
+    json_lines = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    check(len(json_lines) == 1, f"{tag}: the CLI printed {len(json_lines)} JSON lines")
+    return out, json_lines[0], seconds, dict(abcn_macro_step=abcn.launches,
+                                             mlp_forward=mlp.launches)
+
+
+def _finite(values):
+    import numpy as np
+    return bool(np.isfinite(np.asarray(values, dtype=float)).all())
+
+
+def phase_cli_test(workdir):
+    """The run-918 flags with --test, then --test --best, on the [cli]
+    phase's checkpoints in ``workdir`` (scripts/tpu_flagship_918.sh:24-29)."""
+    import numpy as np
+
+    res = os.path.join(workdir, "_result_burger-marl_0")
+    total = dict(abcn_macro_step=0, mlp_forward=0)
+    for extra in ([], ["--best"]):
+        tag = "cli-test" + ("-best" if extra else "")
+        summary, line, seconds, launches = _main_json(RUN_918 + ["--test"] + extra, tag)
+        check(line == summary, f"{tag}: printed {line}, returned {summary}")
+        # the JAX CLI's keys (marlpde_tpu/run.py:527-569)
+        check(list(summary) == ["workload", "test_mean_return", "test_returns", "nus",
+                                "baseline_cumreward", "controlled_cumreward"],
+              f"{tag}: summary keys {list(summary)}")
+        check(len(summary["test_returns"]) == 8 and summary["nus"] == []
+              and _finite([summary["test_mean_return"], summary["baseline_cumreward"],
+                           summary["controlled_cumreward"]] + summary["test_returns"]),
+              f"{tag}: summary {summary}")
+        shapes = {f: np.load(os.path.join(res, f"{f}_0.npy")).shape
+                  for f in ("relError", "sgsTerms", "dnsSgsTerms")}
+        check(shapes == dict(relError=(1, 500), sgsTerms=(1, 500, 32),
+                             dnsSgsTerms=(1, 5001, 32)), f"{tag}: dumps {shapes}")
+        figures = [f for f in ("test.png", "test_panels.npz")
+                   if os.path.exists(os.path.join(res, f))]
+        check(figures, f"{tag}: neither the figures nor test_panels.npz")
+        # evaluate: 500 ABCN launches (B=8) and 500 MLP; the pool sweep and the
+        # comparison step the per-env env, 500 MLP launches each
+        check(launches == dict(abcn_macro_step=500, mlp_forward=1500),
+              f"{tag}: launches {launches}")
+        total = {k: total[k] + launches[k] for k in total}
+        print(f"[{tag}] {seconds:.3f} s; test_mean_return {summary['test_mean_return']:.6f}, "
+              f"controlled {summary['controlled_cumreward']:.6f} against uncontrolled "
+              f"{summary['baseline_cumreward']:.6f}; dumps {shapes}; {figures[0]}; "
+              f"launches {launches}")
+    return total
+
+
+def phase_ks(workdir):
+    """The run-926 KS flags through the CLI, cut to 4 generations of 16
+    episodes (--NE 32000) with testing every 2, then --test and --test --best
+    (scripts/tpu_ks_926.sh)."""
+    import numpy as np
+    import torch
+    from marlpde_tpu_torch.envs import ks_env
+
+    pools = []
+    build = ks_env.make_dns_pool
+
+    def timed_pool(*args, **kw):
+        t0 = time.perf_counter()
+        pool = build(*args, **kw)
+        torch.cuda.synchronize()
+        pools.append((tuple(pool.uu.shape), pool.uu.device.type, time.perf_counter() - t0))
+        return pool
+
+    ks_env.make_dns_pool = timed_pool
+    try:
+        ts, rep, hist, rows, launches = _cli(RUN_926 + ["--NE", "32000", "--testfreq", "2"],
+                                             "ks")
+    finally:
+        ks_env.make_dns_pool = build
+    shape, where, build_s = pools[0]
+    check(shape == (16, 2001, 1024) and where == "cuda", f"ks: DNS pool {shape} on {where}")
+    print(f"[ks] host DNS pool (16 rows of N=1024, 200 + 2000 ETDRK4 steps each, float64 "
+          f"numpy) built and placed on the card in {build_s:.2f} s")
+    for r in rows:
+        i = r["gen"] - 1
+        print(f"[ks] gen {r['gen']}: {r['s']:.3f} s, updates {hist['updates'][i]}, "
+              f"mean_return {hist['mean_return'][i]:.6f}, blowups {hist['blowups'][i]}, "
+              f"launches abcn +{r['d_abcn']} mlp +{r['d_mlp']}", flush=True)
+    # padded (--fused) accounting: updates_per_generation = min(--maxupd 1000,
+    # 16 envs x 500 steps x reuse 512 (mbsize 256 / expperu 0.5) / 256) = 1000;
+    # _updates_started waits for 20000 experiences (rstart 20000 x 500 / 500):
+    # 8000, 16000, 24000 after generations 1-3
+    check(hist["updates"] == [0, 0, 1000, 1000], f"ks updates {hist['updates']}")
+    check(ts.n_updates == 2000, f"ks n_updates {ts.n_updates}")
+    check(hist["blowups"] == [0, 0, 0, 0] and _finite(hist["mean_return"]),
+          f"ks blowups {hist['blowups']}, returns {hist['mean_return']}")
+    check(len(hist["test_return"]) == 2 and _finite(hist["test_return"]),
+          f"ks test returns {hist['test_return']}")
+    check(ts.net.width == 256 and ts.net.mu_param == "sigma_relative"
+          and ts.net.obs_dim == 32 and ts.net.act_dim == 16, "ks: the learner's shape")
+    _check_state_on_card("ks", ts, rep)
+    check(launches["mlp_forward"] > 0 and launches["abcn_macro_step"] == 0,
+          f"ks: launches {launches}")
+    gen_s = [r["s"] for r in rows]
+    print(f"[ks] launches {launches}; test returns {hist['test_return']}; last update "
+          f"metrics {json.dumps(hist['metrics'][-1])}")
+
+    res = os.path.join(workdir, "_result_ks_926")
+    test_launches = dict(abcn_macro_step=0, mlp_forward=0)
+    for extra in ([], ["--best"]):
+        tag = "ks-test" + ("-best" if extra else "")
+        summary, line, seconds, launches_t = _main_json(RUN_926 + ["--test"] + extra, tag)
+        check(list(summary) == ["workload", "test_mean_return", "test_returns", "sample_ids",
+                                "baseline_per_id", "controlled_per_id", "baseline_cumreward",
+                                "controlled_cumreward"], f"{tag}: keys {list(summary)}")
+        check(summary["sample_ids"] == list(range(8)) and len(summary["test_returns"]) == 16
+              and all(len(summary[k]) == 8 for k in ("baseline_per_id", "controlled_per_id")),
+              f"{tag}: summary {summary}")
+        check(_finite(summary["test_returns"] + summary["baseline_per_id"]
+                      + summary["controlled_per_id"]), f"{tag}: not finite {summary}")
+        missing = [f for i in range(8) for f in (f"sgs_926_s{i}.npz", f"dnsSgs_926_s{i}.npz")
+                   if not os.path.exists(os.path.join(res, f))]
+        check(not missing, f"{tag}: missing {missing}")
+        with np.load(os.path.join(res, "sgs_926_s0.npz")) as d:
+            check(d["uu"].shape == (500, 16), f"{tag}: sgs uu {d['uu'].shape}")
+        check(launches_t["mlp_forward"] > 0 and launches_t["abcn_macro_step"] == 0,
+              f"{tag}: launches {launches_t}")
+        test_launches = {k: test_launches[k] + launches_t[k] for k in test_launches}
+        print(f"[{tag}] {seconds:.3f} s; controlled {summary['controlled_cumreward']:.6f} "
+              f"against uncontrolled {summary['baseline_cumreward']:.6f} over 8 pool rows; "
+              f"launches {launches_t}")
+    return ts, rep, gen_s, launches, test_launches
+
+
+def phase_ks_breakdown(ts, rep, gen_s):
+    """One run-926 generation's phases on the card, each ended by a sync:
+    collection (16 envs x 500 macro-steps), normalizers + flat insert, 1000
+    experience-mode updates at mbsize 256."""
+    import torch
+    from marlpde_tpu_torch import run
+    from marlpde_tpu_torch.envs import rollout
+    from marlpde_tpu_torch.train import trainer
+
+    env, rl_cfg, _ = run.make_workload(run.build_parser().parse_args(RUN_926))
+    g = torch.Generator(device=ts.beta.device).manual_seed(7)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (traj, _), t_collect = timed(lambda: rollout.collect_episodes(env, rl_cfg, ts, g, 16, 64))
+    (ts, rep), t_insert = timed(lambda: trainer.insert_generation(rl_cfg, ts, rep, traj))
+    _, t_update = timed(lambda: trainer.run_updates(rl_cfg, ts, rep, g, 1000))
+    total = t_collect + t_insert + t_update
+    print(f"[ks-breakdown] collect (16 envs x 500 macro-steps x 4 ETDRK4 sub-steps) "
+          f"{t_collect:.3f} s, normalizers + flat insert {t_insert:.3f} s, 1000 updates "
+          f"{t_update:.3f} s ({1000 * t_update / 1000:.3f} ms per update at mbsize 256); "
+          f"collection {100 * t_collect / total:.1f}% of a generation with updates; the "
+          f"CLI's generations took {', '.join(f'{s:.3f}' for s in gen_s)} s")
+
+
+def phase_ks_agree(dev):
+    """A deterministic KS collection at the run-926 widths (16 envs, N_dns
+    1024, grid 16, 16 actions, a width-256 sigma-relative policy), 20
+    macro-steps of 4 ETDRK4 sub-steps, on the card and on the CPU with the
+    same weights and the same float32 DNS pool."""
+    import dataclasses
+    import torch
+    from marlpde_tpu_torch.envs import ks_env, registry, rollout
+    from marlpde_tpu_torch.rl import vracer
+    from marlpde_tpu_torch.train import trainer
+
+    kw = dict(N_dns=1024, grid_size=16, num_actions=16, t_end=70.0, episode_length=20)
+    pool = ks_env.make_dns_pool(ks_env.KSEnvConfig(**kw), 16, device="cpu")
+    pools = {"cpu": pool, dev: ks_env.KSDnsPool(**{
+        f.name: getattr(pool, f.name).to(dev) for f in dataclasses.fields(ks_env.KSDnsPool)})}
+    trajs, weights = {}, None
+    for d in ("cpu", dev):
+        env = registry.make_env("ks", pool=pools[d], **kw)
+        rl_cfg = trainer.default_rl_config(env, width=256, init_noise=0.01, sigma_max=5.0,
+                                           mu_param="sigma_relative")
+        ts = vracer.init_train(rl_cfg, torch.Generator(device=d).manual_seed(9), device=d)
+        if weights is None:
+            with torch.no_grad():       # a non-zero mean head: the actions are not 0
+                for p in ts.net.parameters():
+                    p.add_(torch.randn(p.shape, generator=torch.Generator().manual_seed(1))
+                           * 0.05)
+            weights = {k: v.clone() for k, v in ts.net.state_dict().items()}
+        ts.net.load_state_dict(weights)
+        trajs[d] = rollout.collect_episodes(env, rl_cfg, ts, None, 16, deterministic=True)[0]
+    worst = {}
+    for name in ("obs", "actions", "mu", "sigma", "rewards", "mask", "final_obs"):
+        a, b = trajs[dev][name].cpu(), trajs["cpu"][name]
+        check(a.shape == b.shape and torch.isfinite(a).all(), f"ks-agree {name}")
+        worst[name] = ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+    check(trajs["cpu"]["actions"].abs().max() > 1e-3, "ks-agree: the actions are all ~0")
+    print(f"[ks-agree] B=16, 20 macro-steps x 4 ETDRK4 sub-steps, N_dns 1024, grid 16: max "
+          f"err relative to each tensor's max |value| {json.dumps(worst)} (tolerance "
+          f"{KS_AGREE_TOL:g}: float32 cuFFT and the MLP kernel against pocketfft and the "
+          f"module)")
+    check(max(worst.values()) <= KS_AGREE_TOL, f"card and CPU KS collections disagree: {worst}")
+
+
 def ptxas_by_instantiation(log):
     """{log2 N: (registers, spill store bytes, spill load bytes)} of each
     instantiation of the ABCN kernel template in ptxas's -v report."""
@@ -620,16 +862,27 @@ def main() -> int:
         try:
             ts, rep, launches_cli = phase_cli(workdir)
             phase_cli_breakdown(ts, rep)
+            launches_cli_test = phase_cli_test(workdir)
             launches_w256 = phase_cli_w256()
+            del ts, rep
+            ts, rep, gen_s, launches_ks, launches_ks_test = phase_ks(workdir)
+            phase_ks_breakdown(ts, rep, gen_s)
+            del ts, rep
         finally:
             os.chdir(here)
     phase_fast_off(dev)
-    by_path = dict(main=launches_main, cli=launches_cli, cli_w256=launches_w256)
+    phase_ks_agree(dev)
+    by_path = dict(main=launches_main, cli=launches_cli, cli_w256=launches_w256,
+                   cli_test=launches_cli_test, ks=launches_ks, ks_test=launches_ks_test)
+    # the Burgers paths run both kernels; KS has its own solver and runs the MLP only
+    burgers = ("main", "cli", "cli_w256", "cli_test")
     for k in kernels:
         k["launches"] = launches_cli[k["name"]]
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
-        check(all(v > 0 for v in k["launches_by_path"].values()),
-              f"{k['name']} was not launched on every path: {k['launches_by_path']}")
+        want = (lambda p, n: n > 0) if k["name"] == "mlp_forward" else (
+            lambda p, n: (n > 0) == (p in burgers))
+        check(all(want(p, n) for p, n in k["launches_by_path"].items()),
+              f"{k['name']} launches by path {k['launches_by_path']}")
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

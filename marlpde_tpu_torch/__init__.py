@@ -1,15 +1,18 @@
 """marlpde_tpu_torch: the PyTorch + CUDA (Hopper) port of marlpde_tpu.
 
 The package mirrors ``marlpde_tpu/`` file for file, so each module's
-counterpart is found under the same path.  It covers the ``burger`` and
-``burger-marl`` training CLI (``python -m marlpde_tpu_torch.run``) on the
-spectral-reward Burgers configs: the whole-batch and the general per-env env,
-VRACER in both minibatch modes, checkpoint/resume, testing and diagnostics.
+counterpart is found under the same path.  It covers the ``burger``,
+``burger-marl`` and ``ks`` CLI (``python -m marlpde_tpu_torch.run``): on the
+spectral-reward Burgers configs the whole-batch and the general per-env env,
+the KS env on its ETDRK4 solver, VRACER in both minibatch modes,
+checkpoint/resume, testing and diagnostics, and the --test stage (evaluation
+sweeps, SGS diagnostics, makePlot, the async .npy sink).
 The two TPU kernels of that path are CUDA kernels written for ``sm_90a``
 (``csrc/``), wrapped in ``kernels/``; each wrapper runs its plain PyTorch
 version on CPU tensors and launches the kernel, or raises, on CUDA tensors.
 
-The port imports torch and numpy only: never jax, flax, optax or marlpde_tpu.
+The port imports torch and numpy (and scipy, and matplotlib where it is
+installed, for the test stage's figures), never jax, flax, optax or marlpde_tpu.
 State is dataclasses of tensors, the device is passed explicitly, and
 ``torch.Generator``s take the place of ``jax.random`` keys.
 """

@@ -1,5 +1,5 @@
 """State featurization for the Burgers closure env (port of
-marlpde_tpu/envs/features.py:27-86).
+marlpde_tpu/envs/features.py:27-93).
 
 Parity target: Burger.getState (Burger.py:604-675).
 
@@ -87,3 +87,9 @@ def burger_features(version: int, num_agents: int, u, u_prev, v, dt, dx):
         ek_b = ek_half[..., None, :].expand(ek_half.shape[:-1] + (num_agents, N // 2))
         obs = torch.cat([obs, ek_b], dim=-1)
     return obs
+
+
+def agent_block_mean(x, num_agents: int):
+    """Per-agent means over contiguous blocks (Burger.py:595-599): (..., na)."""
+    N = x.shape[-1]
+    return x.reshape(x.shape[:-1] + (num_agents, N // num_agents)).mean(dim=-1)

@@ -1,12 +1,13 @@
-"""Workload registry (port of marlpde_tpu/envs/registry.py:32-73,183).
+"""Workload registry (port of marlpde_tpu/envs/registry.py:32-92,183-186).
 
-The port covers the Burgers presets 'burger' (run-vracer-burger.py) and
+The port builds the Burgers presets 'burger' (run-vracer-burger.py) and
 'burger-marl' (run-vracer-burger-marl.py) on the spectral-reward ABCN
 configs: the whole-batch env where it implements the config
 (``fast_burger_ok``) and ``fast`` is not 'off', the general per-env env
-otherwise.  Every other preset, and the Burgers configs neither env takes
-(``general_burger_ok``), raise NotImplementedError until their slice lands
-(ROADMAP queue 1).
+otherwise.  It builds 'ks' (run-vracer-ks.py): the per-env KS env on the
+ETDRK4 solver, spectral or pointwise reward.  Every other preset, and the
+Burgers configs neither Burgers env takes (``general_burger_ok``), raise
+NotImplementedError until their slice lands (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 
 from marlpde_tpu_torch import NOT_PORTED as _NOT_PORTED
 from marlpde_tpu_torch.device import resolve_device
-from marlpde_tpu_torch.envs import burger_env, burger_fast
+from marlpde_tpu_torch.envs import burger_env, burger_fast, ks_env
 from marlpde_tpu_torch.envs.rollout import Env
 
 
@@ -76,13 +77,33 @@ def make_burger_env(cfg: burger_env.BurgerEnvConfig = None, n_dns: int = 1,
         consts=pool, batch_reset=batch_reset, batch_step=batch_step)
 
 
+def make_ks_env(cfg: ks_env.KSEnvConfig = None, n_dns: int = 1, pool=None,
+                dtype=torch.float32, device=None, **overrides) -> Env:
+    """The KS env on ``device`` (None: the card, raising where there is none;
+    a given ``pool`` keeps its own device)."""
+    if cfg is None:
+        cfg = ks_env.KSEnvConfig(**overrides)
+    elif overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    if pool is None:
+        pool = ks_env.make_dns_pool(cfg, n_dns, dtype=dtype, device=resolve_device(device))
+    return Env(
+        name="ks", cfg=cfg,
+        reset=partial(ks_env.reset, cfg), step=partial(ks_env.step, cfg),
+        obs_dim=cfg.obs_dim, num_agents=cfg.num_agents,
+        act_dim=cfg.actions_per_agent, episode_length=cfg.episode_length,
+        action_low=-5.0, action_high=5.0,   # run-vracer-ks.py:92-93
+        consts=pool)
+
+
 MAKERS = {
     "burger": make_burger_env,
     "burger-marl": lambda **kw: make_burger_env(num_agents=kw.pop("num_agents", 32), **kw),
+    "ks": make_ks_env,
 }
 
 # presets of the JAX registry that wait for a later slice
-PENDING = ("burger-jax", "burger-lockstep", "coupled-burger", "burger-fd", "ks",
+PENDING = ("burger-jax", "burger-lockstep", "coupled-burger", "burger-fd",
            "diffusion-simple", "diffusion-error", "diffusion-stencil3",
            "advection-simple", "laplace")
 

@@ -144,7 +144,8 @@ def test_registry_covers_the_slice_only(pools):
     for off_slice in (dict(spectral_reward=False), dict(forcing=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tbe.make_dns_pool(dataclasses.replace(tcfg(CFG), **off_slice), 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        treg.make_env("ks")
+    for pending in ("burger-fd", "diffusion-simple"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            treg.make_env(pending)
     with pytest.raises(ValueError):
         treg.make_env("no-such-env")

@@ -1,7 +1,8 @@
 """The port's entry points run on the card unless the caller asks for the CPU:
-``device.resolve_device(None)``, ``registry.make_env`` and ``run.main`` /
-``run.make_workload`` without a device raise where torch.cuda is not
-available, and ``device="cpu"`` runs.  torch.cuda.is_available is patched to
+``device.resolve_device(None)``, ``registry.make_env`` (Burgers and KS) and
+``run.main`` / ``run.make_workload`` without a device (training, KS and the
+--test stage) raise where torch.cuda is not available, and ``device="cpu"``
+runs.  torch.cuda.is_available is patched to
 False, so these hold on a machine with a card too.  No JAX is imported."""
 
 import pytest
@@ -18,6 +19,9 @@ TINY = ("burger-marl --nagents 4 --specreward --dforce --ic turbulence --NDNS 64
         "--run 997").split()
 ENV_KW = dict(N_dns=64, grid_size=32, num_actions=32, num_agents=4, dt=0.01, T=0.1,
               nu=0.05, episode_length=5, ic_case="turbulence", spectral_reward=True)
+KS_KW = dict(N_dns=64, grid_size=16, num_actions=16, t_transient=5.0, t_end=15.0,
+             episode_length=5)
+KS_TINY = "ks --NDNS 64 --N 16 --NA 16 --episodelength 5 --width 8 --run 996".split()
 NO_CARD = "torch.cuda is not available"
 
 
@@ -75,3 +79,22 @@ def test_main_on_the_cpu_when_asked(no_card, tmp_path, monkeypatch, capsys):
     ts, rep, hist = trun.main(TINY, device="cpu")
     assert hist["gen"] == [1, 2] and capsys.readouterr().out.count("[trainer] gen ") == 2
     assert all(p.device == torch.device("cpu") for p in ts.net.parameters())
+
+
+def test_make_env_ks_raises_without_a_card_and_runs_on_the_cpu(no_card):
+    with pytest.raises(RuntimeError, match=NO_CARD):
+        registry.make_env("ks", **KS_KW)
+    env = registry.make_env("ks", device="cpu", **KS_KW)
+    assert env.consts.uu.device == torch.device("cpu") and env.name == "ks"
+
+
+@pytest.mark.parametrize("extra", [[], ["--test"], ["--test", "--best"]],
+                         ids=["train", "test", "test-best"])
+def test_main_ks_and_test_without_device_raise_and_write_nothing(no_card, tmp_path,
+                                                                 monkeypatch, extra):
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match=NO_CARD):
+        trun.main(KS_TINY + extra)
+    with pytest.raises(RuntimeError, match=NO_CARD):
+        trun.main(TINY + extra)
+    assert list(tmp_path.iterdir()) == []

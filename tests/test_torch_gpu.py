@@ -10,9 +10,10 @@ import numpy as np
 import pytest
 import torch
 
-from marlpde_tpu_torch.envs import burger_env, burger_fast
+from marlpde_tpu_torch.envs import burger_env, burger_fast, ks_env
 from marlpde_tpu_torch.kernels import abcn, mlp
 from marlpde_tpu_torch.rl import networks
+from marlpde_tpu_torch.solvers import ks
 
 pytestmark = pytest.mark.gpu
 torch.set_num_threads(1)
@@ -250,3 +251,59 @@ def test_experience_update_on_card_matches_cpu(cuda, monkeypatch):
     assert torch.equal(rg.off.cpu(), rc.off) and torch.equal(rg.ep_last.cpu(), rc.ep_last)
     for k in ("loss", "beta", "frac_off_replay"):
         assert abs(float(mg[k]) - float(mc[k])) <= 1e-4 * max(1.0, abs(float(mc[k]))), k
+
+
+@pytest.mark.parametrize("R", [16, 8000])
+def test_mlp_kernel_at_the_ks_shape(cuda, R):
+    """The run-926 policy: obs 32, 16 actions, width 256, sigma_relative,
+    sigma_max 5; R=16 acting rows, R=8000 insert rows."""
+    g = torch.Generator().manual_seed(R)
+    net = networks.VracerNet(32, 16, width=256, mu_param="sigma_relative", sigma_max=5.0,
+                             init_noise=0.01, device=cuda)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.copy_(torch.randn(p.shape, generator=g).to(cuda) * (0.5 / np.sqrt(p.shape[-1])))
+        x = torch.randn(R, 32, generator=g).to(cuda)
+        before = mlp.launches
+        out = mlp.mlp_forward(x, net)
+        torch.cuda.synchronize()
+        assert mlp.launches == before + 1
+        for o, r in zip(out, net(x)):
+            assert o.shape == r.shape
+            assert (o - r).abs().max().item() <= 2e-5
+
+
+@pytest.mark.parametrize("N", [16, 1024])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+def test_ks_irfft_on_the_card_matches_the_cpu(cuda, N, dtype, tol):
+    """A half-spectrum with non-zero imaginary parts in bins 0 and N/2 (the KS
+    state carries them): cuFFT's C2R on the card must read them as zero, as
+    pocketfft does on the CPU."""
+    g = torch.Generator().manual_seed(N)
+    rv = torch.complex(torch.randn(5, N // 2 + 1, generator=g, dtype=dtype),
+                       torch.randn(5, N // 2 + 1, generator=g, dtype=dtype))
+    cpu = ks.irfft(rv, N)
+    card = ks.irfft(rv.to(cuda), N).cpu()
+    np.testing.assert_allclose(cpu.numpy(), np.fft.irfft(rv.numpy(), N), atol=tol)
+    assert (card - cpu).abs().max().item() <= tol * cpu.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-10)])
+def test_ks_step_on_card_matches_cpu(cuda, dtype, tol):
+    """Six KS envs through five macro-steps of 40 ETDRK4 sub-steps, on the
+    card and on the CPU from the same pool and actions."""
+    cfg = ks_env.KSEnvConfig(N_dns=64, grid_size=16, num_actions=16, t_transient=5.0,
+                             t_end=15.0, episode_length=5)
+    pool = ks_env.make_dns_pool(cfg, 2, dtype=dtype, device="cpu")
+    pools = {"cpu": pool, cuda: ks_env.KSDnsPool(**{
+        k: getattr(pool, k).to(cuda) for k in ("uu", "spline_m", "v0", "ek_ktt", "nu")})}
+    states = {d: ks_env.reset(cfg, pools[d], None, torch.arange(6, device=d))[0] for d in pools}
+    g = torch.Generator().manual_seed(0)
+    for _ in range(cfg.episode_length):
+        a = (torch.randn(6, 1, 16, generator=g) * 0.5).to(dtype)
+        outs = {d: ks_env.step(cfg, pools[d], states[d], a.to(d)) for d in pools}
+        states = {d: outs[d][0] for d in pools}
+        for x, y in [(outs[cuda][k].cpu(), outs["cpu"][k]) for k in (1, 2)] + [
+                (states[cuda].solver.u.cpu(), states["cpu"].solver.u)]:
+            assert torch.isfinite(y).all()
+            assert (x - y).abs().max().item() <= tol * max(1.0, y.abs().max().item())

@@ -93,8 +93,9 @@ def test_tiny_main_trains_resumes_and_prints_one_json_line(tmp_path, monkeypatch
 
 
 @pytest.mark.parametrize("argv", [
-    BARE + ["--test"], BARE + ["--mesh"], BARE + ["--learner", "apg"],
-    BARE + ["--save-episodes"], BARE + ["--bf16"], ["cmaes-burger"], ["ks"],
+    ["coupled-burger", "--ic", "turbulence", "--test"], BARE + ["--mesh"],
+    BARE + ["--learner", "apg"], BARE + ["--save-episodes"], BARE + ["--bf16"],
+    ["cmaes-burger"], ["laplace"],
     ["burger-fd"], ["diffusion-simple"], ["coupled-burger"], ["burger-jax"],
     ["burger-marl", "--ic", "turbulence", "--NDNS", "64"],        # MSE reward
     BARE + ["--ssm", "--NDNS", "64"]], ids=lambda a: " ".join(a[:1] + a[-2:]))
