@@ -27,7 +27,7 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    ``main`` (experience mode, korali's ledger, testing, checkpoints,
    diagnostics) for 6 generations, then ``--resume`` for a 7th, in a fresh
    temporary directory; [cli-breakdown] one generation's collection, insert
-   and 2500 updates timed apart;
+   and updates (BREAKDOWN_UPDATES of them) timed apart;
 7. [cli-w256] one generation at the CLI's default width 256;
 8. [fast-off] a deterministic collection through the general per-env env
    (torch.fft solver) against the whole-batch env (ABCN kernel), same weights;
@@ -36,14 +36,26 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    comparison, makePlot's panels);
 10. [ks] the run-926 KS flags (scripts/tpu_ks_926.sh) through the CLI for 4
    fused generations of 16 episodes, then --test and --test --best;
-   [ks-breakdown] one generation's collection, insert and 1000 updates;
+   [ks-breakdown] one generation's collection, insert and updates;
 11. [ks-agree] a deterministic KS collection on the card against the same on
-   the CPU, same weights.
+   the CPU, same weights;
+12. [fd] the run-927 burger-fd flags (run-vracer-burger-fd.py: N_dns 1024,
+   N = NA = 256, explicit-Euler FD, MSE reward, width 32) through the CLI for
+   6 generations, then --test and --test --best; [fd-breakdown] one
+   generation's collection, insert and updates timed apart;
+13. [fd-agree] a deterministic burger-fd collection on the card against the
+   same on the CPU, same weights;
+14. [variants] one short CLI run on the card of coupled-burger, burger-jax,
+   burger (MSE reward), burger --forcing, burger --ssm and burger --dsm --ic
+   forced (coupled-burger and burger also --test), and burger-lockstep
+   through registry.make_env and trainer.train, each at a reduced depth.
 
 Launch counts are set to 0 just before each path and read just after; the
-comparisons of a kernel with its plain version are not counted.  The Burgers
-paths (main, cli, cli_w256, cli_test) must launch both kernels; the KS paths
-(ks, ks_test) the MLP kernel and never the ABCN kernel.  Standard output ends
+comparisons of a kernel with its plain version are not counted.  The
+flagship Burgers paths (main, cli, cli_w256, cli_test) must launch both
+kernels; every other path (ks, ks_test, fd, fd_test, variants) the MLP kernel
+and never the ABCN kernel: their configs run the general per-env env on
+torch.fft, as in the JAX package.  Standard output ends
 with one JSON line of kernel results (launches of the [cli] path, and of each
 path under "launches_by_path"), then the contract line {"ok": true,
 "device": {...}}.  Without a CUDA card, or without the package beside it, the
@@ -82,7 +94,35 @@ RUN_918 = ("burger-marl --nagents 32 --specreward --dforce --ic turbulence --wid
 # the run-926 KS flags (scripts/tpu_ks_926.sh); the DNS pool is 16 rows of N=1024
 RUN_926 = ("ks --N 16 --NA 16 --ndns 16 --sigma-max 5 --iex 0.01 --numenvs 16 --maxupd 1000 "
            "--fused --testepisodes 16 --run 926").split()
+# experience-mode updates timed by each [*-breakdown] (its ms per update)
+BREAKDOWN_UPDATES = 500
 KS_AGREE_TOL = 1e-4  # relative to each tensor's max |value|: float32, cuFFT against pocketfft
+# the run-vracer-burger-fd.py config (bench.py:79-84): N_dns 1024, N = NA = 256,
+# turbulence IC, MSE reward, width 32, iex 0.005, at the CLI's default mbsize.
+# --dforce: the actions are the forcing itself, as in bench.py's cell.  The
+# CLI's default multiplies them by d2u/dx2 (Burger.py:445-450), which explicit
+# Euler at N=256 cannot take: an untrained policy's episodes all blow up in
+# their first macro-step, in the JAX package too
+RUN_927 = ("burger-fd --dforce --NDNS 1024 --numenvs 10 --maxupd 2500 --testepisodes 8 "
+           "--run 927").split()
+# relative to each tensor's max |value|: float32 torch.fft on the card against
+# pocketfft, the MLP kernel against the module.  Open loop (the card's env on
+# the CPU's actions, its policy on the CPU's observations) at FD_AGREE_TOL;
+# closed loop the policy amplifies the rounding of its version-0 observation
+# d2u/dx2 in the actions, held at FD_CLOSED_TOL (4.0e-4 on an H100)
+FD_AGREE_TOL = 1e-4
+FD_CLOSED_TOL = 1e-3
+# the [variants] depth: 50 macro-steps of 10 sub-steps, 2 generations of 16
+# episodes where none blows up
+VARIANT_DEPTH = "--episodelength 50 --T 0.5 --NE 1600".split()
+# --dforce: the actions are the forcing itself.  The last entry is the CLI's
+# default run (MSE reward, actions scaling d2u/dx2), where an untrained
+# policy may blow up some of its episodes: its check counts them
+VARIANTS = ("coupled-burger", "burger-jax --dforce", "burger --dforce",
+            "burger --dforce --forcing", "burger --dforce --ssm",
+            "burger --dforce --dsm --ic forced", "burger")
+# the policy heads of the [variants] runs: (actions, sigma_max, iex)
+VARIANT_HEADS = {"coupled": (1, 1.0, 0.1), "burger": (32, 1.0, 0.1), "jax": (32, 0.1, 0.01)}
 
 
 def check(cond, msg):
@@ -222,7 +262,15 @@ def phase_kernels(env, dev):
     shapes = ([(NUM_ENVS * cfg.num_agents, D, A, w, m, np.inf, 0.1) for w in (128, 256)
                for m in ("absolute", "sigma_relative")]
               + [(R, D, A, w, "absolute", np.inf, 0.1) for R in (320, 160000) for w in (128, 256)]
-              + [(R, 32, 16, 256, "sigma_relative", 5.0, 0.01) for R in (16, 8000)])
+              + [(R, 32, 16, 256, "sigma_relative", 5.0, 0.01) for R in (16, 8000)]
+              # burger-fd (run 927): obs 256, 256 actions, width 32; acting rows
+              # (10 envs x 1 agent), insert rows (10 x 500)
+              + [(R, 256, 256, 32, "absolute", 0.05, 0.005) for R in (10, 5000)]
+              # [variants] at VARIANT_DEPTH: acting rows (16 envs x 1 agent) and
+              # insert rows (16 x 50) of coupled-burger (1 action), the burger
+              # runs (32 actions) and burger-jax (32 actions, sigma_max 0.1, iex 0.01)
+              + [(R, 32, A, 256, "absolute", sigma_max, iex) for R in (16, 800)
+                 for A, sigma_max, iex in VARIANT_HEADS.values()])
     mlp_rows = []
     for R, D, A, width, mu_param, sigma_max, iex in shapes:
         x = torch.randn(R, D, generator=g, device=dev)
@@ -248,14 +296,17 @@ def phase_kernels(env, dev):
               f"computes this function")
         check(err <= MLP_TOL, f"mlp kernel disagrees with VracerNet (R={R}, obs={D}, "
                               f"W={width}, {mu_param}): {err:.3e}")
-        mlp_rows.append(dict(R=R, D=D, width=width, mu_param=mu_param, err=err, ms=ms,
-                             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by))
+        mlp_rows.append(dict(R=R, D=D, A=A, iex=iex, width=width, mu_param=mu_param, err=err,
+                             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by))
     for width in (128, 256):
         w2 = torch.randn(width, width, generator=g, device=dev)
         print(f"[kernels] w2_image W={width} (the 3xTF32 split of W2, once per parameter "
               f"version; torch ops): {median_ms(lambda: mlp.w2_image(w2)):.4f} ms")
     flag = {(r["width"], r["mu_param"]): r for r in mlp_rows if r["R"] == NUM_ENVS * 32}
     ks = {r["R"]: r for r in mlp_rows if r["D"] == 32}
+    fd = {r["R"]: r for r in mlp_rows if r["D"] == 256}
+    var = {(r["R"], r["A"], r["iex"]): r for r in mlp_rows if r["D"] == 32 and r["R"] in (16, 800)
+           and r["mu_param"] == "absolute"}
     results.append(dict(name="mlp_forward", route="cuda",
                         source="marlpde_tpu_torch/csrc/mlp.cu",
                         replaces="marlpde_tpu/ops/mlp_pallas.py:71",
@@ -268,6 +319,11 @@ def phase_kernels(env, dev):
                         plain_ms_w256=flag[256, "absolute"]["plain_ms"],
                         bound_ms_w256=flag[256, "absolute"]["bound_ms"],
                         **{f"{key}_ks_r{R}": ks[R][key] for R in (16, 8000)
+                           for key in ("ms", "plain_ms", "bound_ms")},
+                        **{f"{key}_fd_r{R}": fd[R][key] for R in (10, 5000)
+                           for key in ("ms", "plain_ms", "bound_ms")},
+                        **{f"{key}_{tag}_r{R}": var[R, A, iex][key]
+                           for tag, (A, _, iex) in VARIANT_HEADS.items() for R in (16, 800)
                            for key in ("ms", "plain_ms", "bound_ms")}))
     return results
 
@@ -424,7 +480,10 @@ def _cli(argv, tag):
     return ts, rep, hist, rows, dict(abcn_macro_step=abcn.launches, mlp_forward=mlp.launches)
 
 
-def _check_generations(tag, hist, rows, first_gen):
+def _check_generations(tag, hist, rows, first_gen, abcn=True):
+    """Each generation's line, and its checks: finite returns and metrics,
+    metrics exactly where updates ran, 500 or more MLP launches, and 500 or
+    more ABCN launches on the flagship's paths (``abcn``), none elsewhere."""
     import numpy as np
     for r in rows:
         i = r["gen"] - 1
@@ -433,7 +492,7 @@ def _check_generations(tag, hist, rows, first_gen):
               f"mean_return {hist['mean_return'][i]:.6f}, blowups {hist['blowups'][i]}, "
               f"ep_len {hist['mean_ep_len'][i]:.1f}, launches abcn +{r['d_abcn']} "
               f"mlp +{r['d_mlp']}, beta {m.get('beta', '-')}", flush=True)
-        check(r["d_abcn"] >= 500 and r["d_mlp"] >= 500,
+        check((r["d_abcn"] >= 500 if abcn else r["d_abcn"] == 0) and r["d_mlp"] >= 500,
               f"{tag} gen {r['gen']}: kernels launched abcn {r['d_abcn']}, mlp {r['d_mlp']}")
         check(np.isfinite(hist["mean_return"][i]), f"{tag} gen {r['gen']}: return")
         check(all(np.isfinite(v) for v in m.values()), f"{tag}: metrics not finite: {m}")
@@ -491,15 +550,17 @@ def phase_cli(workdir):
     return ts, rep, total
 
 
-def phase_cli_breakdown(ts, rep):
-    """One run-918 generation's phases on the card, each ended by a sync:
-    collection, normalizers + flat insert, 2500 experience-mode updates."""
+def phase_cli_breakdown(tag, argv, ts, rep, what, gen_updates, gen_s=None):
+    """One CLI generation's phases on the card, each ended by a sync: the
+    collection of ``argv``'s episodes, normalizers + flat insert, and
+    BREAKDOWN_UPDATES experience-mode updates; the collection's share is of a
+    generation with ``gen_updates`` updates at the measured ms per update."""
     import torch
     from marlpde_tpu_torch import run
     from marlpde_tpu_torch.envs import rollout
     from marlpde_tpu_torch.train import trainer
 
-    env, rl_cfg, _ = run.make_workload(run.build_parser().parse_args(RUN_918))
+    env, rl_cfg, tc = run.make_workload(run.build_parser().parse_args(argv))
     g = torch.Generator(device=ts.beta.device).manual_seed(7)
 
     def timed(fn):
@@ -509,12 +570,19 @@ def phase_cli_breakdown(ts, rep):
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
-    (traj, _), t_collect = timed(lambda: rollout.collect_episodes(env, rl_cfg, ts, g, 10, 70))
+    (traj, _), t_collect = timed(lambda: rollout.collect_episodes(
+        env, rl_cfg, ts, g, tc.num_envs, 7 * tc.num_envs))
     (ts, rep), t_insert = timed(lambda: trainer.insert_generation(rl_cfg, ts, rep, traj))
-    _, t_update = timed(lambda: trainer.run_updates(rl_cfg, ts, rep, g, 2500))
-    print(f"[cli-breakdown] collect (10 envs x 500 macro-steps) {t_collect:.3f} s, "
-          f"normalizers + flat insert {t_insert:.3f} s, 2500 updates {t_update:.3f} s "
-          f"({1000 * t_update / 2500:.3f} ms per update at mbsize 8)")
+    _, t_update = timed(lambda: trainer.run_updates(rl_cfg, ts, rep, g, BREAKDOWN_UPDATES))
+    per_update = t_update / BREAKDOWN_UPDATES
+    share = t_collect / (t_collect + t_insert + gen_updates * per_update)
+    line = (f"[{tag}] collect ({what}) {t_collect:.3f} s, normalizers + flat insert "
+            f"{t_insert:.3f} s, {BREAKDOWN_UPDATES} updates {t_update:.3f} s "
+            f"({1000 * per_update:.3f} ms per update at mbsize {rl_cfg.mini_batch_size}); "
+            f"collection {100 * share:.1f}% of a generation with {gen_updates} updates")
+    if gen_s:
+        line += f"; the CLI's generations took {', '.join(f'{x:.3f}' for x in gen_s)} s"
+    print(line)
 
 
 def phase_cli_w256():
@@ -642,22 +710,12 @@ def phase_ks(workdir):
     import torch
     from marlpde_tpu_torch.envs import ks_env
 
-    pools = []
-    build = ks_env.make_dns_pool
-
-    def timed_pool(*args, **kw):
-        t0 = time.perf_counter()
-        pool = build(*args, **kw)
-        torch.cuda.synchronize()
-        pools.append((tuple(pool.uu.shape), pool.uu.device.type, time.perf_counter() - t0))
-        return pool
-
-    ks_env.make_dns_pool = timed_pool
+    pools, restore = _timed_pools(ks_env)
     try:
         ts, rep, hist, rows, launches = _cli(RUN_926 + ["--NE", "32000", "--testfreq", "2"],
                                              "ks")
     finally:
-        ks_env.make_dns_pool = build
+        restore()
     shape, where, build_s = pools[0]
     check(shape == (16, 2001, 1024) and where == "cuda", f"ks: DNS pool {shape} on {where}")
     print(f"[ks] host DNS pool (16 rows of N=1024, 200 + 2000 ETDRK4 steps each, float64 "
@@ -713,36 +771,6 @@ def phase_ks(workdir):
     return ts, rep, gen_s, launches, test_launches
 
 
-def phase_ks_breakdown(ts, rep, gen_s):
-    """One run-926 generation's phases on the card, each ended by a sync:
-    collection (16 envs x 500 macro-steps), normalizers + flat insert, 1000
-    experience-mode updates at mbsize 256."""
-    import torch
-    from marlpde_tpu_torch import run
-    from marlpde_tpu_torch.envs import rollout
-    from marlpde_tpu_torch.train import trainer
-
-    env, rl_cfg, _ = run.make_workload(run.build_parser().parse_args(RUN_926))
-    g = torch.Generator(device=ts.beta.device).manual_seed(7)
-
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
-
-    (traj, _), t_collect = timed(lambda: rollout.collect_episodes(env, rl_cfg, ts, g, 16, 64))
-    (ts, rep), t_insert = timed(lambda: trainer.insert_generation(rl_cfg, ts, rep, traj))
-    _, t_update = timed(lambda: trainer.run_updates(rl_cfg, ts, rep, g, 1000))
-    total = t_collect + t_insert + t_update
-    print(f"[ks-breakdown] collect (16 envs x 500 macro-steps x 4 ETDRK4 sub-steps) "
-          f"{t_collect:.3f} s, normalizers + flat insert {t_insert:.3f} s, 1000 updates "
-          f"{t_update:.3f} s ({1000 * t_update / 1000:.3f} ms per update at mbsize 256); "
-          f"collection {100 * t_collect / total:.1f}% of a generation with updates; the "
-          f"CLI's generations took {', '.join(f'{s:.3f}' for s in gen_s)} s")
-
-
 def phase_ks_agree(dev):
     """A deterministic KS collection at the run-926 widths (16 envs, N_dns
     1024, grid 16, 16 actions, a width-256 sigma-relative policy), 20
@@ -772,17 +800,233 @@ def phase_ks_agree(dev):
             weights = {k: v.clone() for k, v in ts.net.state_dict().items()}
         ts.net.load_state_dict(weights)
         trajs[d] = rollout.collect_episodes(env, rl_cfg, ts, None, 16, deterministic=True)[0]
+    _agree("ks-agree", trajs, dev, KS_AGREE_TOL,
+           "B=16, 20 macro-steps x 4 ETDRK4 sub-steps, N_dns 1024, grid 16")
+
+
+def _timed_pools(module):
+    """Patch ``module.make_dns_pool`` to record (shape, device type, seconds)
+    of each pool it builds; returns (the list, a function that restores it)."""
+    import torch
+    pools, build = [], module.make_dns_pool
+
+    def timed_pool(*args, **kw):
+        t0 = time.perf_counter()
+        pool = build(*args, **kw)
+        torch.cuda.synchronize()
+        pools.append((tuple(pool.uu.shape), pool.uu.device.type, time.perf_counter() - t0))
+        return pool
+
+    module.make_dns_pool = timed_pool
+    return pools, lambda: setattr(module, "make_dns_pool", build)
+
+
+def phase_fd(workdir):
+    """The run-927 burger-fd flags through the CLI, cut to 6 generations of 10
+    episodes (--NE 30000) with testing every 2, then --test and --test --best."""
+    import numpy as np
+    from marlpde_tpu_torch.envs import burger_env
+
+    pools, restore = _timed_pools(burger_env)
+    try:
+        ts, rep, hist, rows, launches = _cli(RUN_927 + ["--NE", "30000", "--testfreq", "2"],
+                                             "fd")
+    finally:
+        restore()
+    shape, where, build_s = pools[0]
+    check(shape == (1, 5001, 1024) and where == "cuda", f"fd: DNS pool {shape} on {where}")
+    print(f"[fd] host DNS pool (1 row of N=1024, 5000 ABCN steps, float64 numpy, with the "
+          f"truth channel at the 256-point grid) built and placed on the card in "
+          f"{build_s:.2f} s")
+    _check_generations("fd", hist, rows, 1, abcn=False)
+    # korali ledger: rstart 20000, expperu 0.5, cap 2500, 5000 live steps a generation
+    check(hist["updates"] == [0, 0, 0, 0, 2500, 2500], f"fd updates {hist['updates']}")
+    check(hist["blowups"] == [0] * 6 and hist["mean_ep_len"] == [500.0] * 6,
+          f"fd blowups {hist['blowups']}, episode lengths {hist['mean_ep_len']}")
+    check(len(hist["test_return"]) == 3 and _finite(hist["test_return"]),
+          f"fd test returns {hist['test_return']}")
+    check(ts.net.width == 32 and ts.net.obs_dim == 256 and ts.net.act_dim == 256,
+          "fd: the learner's shape")
+    _check_state_on_card("fd", ts, rep)
+    check(launches["mlp_forward"] > 0 and launches["abcn_macro_step"] == 0,
+          f"fd: launches {launches}")
+    gen_s = [r["s"] for r in rows]
+    print(f"[fd] update ledger {hist['updates']}, blowups {hist['blowups']}, launches "
+          f"{launches}; test returns {hist['test_return']}; generations "
+          f"{', '.join(f'{x:.3f}' for x in gen_s)} s; last update metrics "
+          f"{json.dumps(hist['metrics'][-1])}")
+
+    res = os.path.join(workdir, "_result_burger-fd_927")
+    test_launches = dict(abcn_macro_step=0, mlp_forward=0)
+    for extra in ([], ["--best"]):
+        tag = "fd-test" + ("-best" if extra else "")
+        summary, line, seconds, launches_t = _main_json(RUN_927 + ["--test"] + extra, tag)
+        check(list(summary) == ["workload", "test_mean_return", "test_returns", "nus",
+                                "baseline_cumreward", "controlled_cumreward"],
+              f"{tag}: summary keys {list(summary)}")
+        check(len(summary["test_returns"]) == 8
+              and _finite([summary["baseline_cumreward"], summary["controlled_cumreward"]]
+                          + summary["test_returns"]), f"{tag}: summary {summary}")
+        shapes = {f: np.load(os.path.join(res, f"{f}_927.npy")).shape
+                  for f in ("relError", "sgsTerms", "dnsSgsTerms")}
+        check(shapes == dict(relError=(1, 500), sgsTerms=(1, 500, 256),
+                             dnsSgsTerms=(1, 5001, 256)), f"{tag}: dumps {shapes}")
+        check(launches_t["mlp_forward"] > 0 and launches_t["abcn_macro_step"] == 0,
+              f"{tag}: launches {launches_t}")
+        test_launches = {k: test_launches[k] + launches_t[k] for k in test_launches}
+        print(f"[{tag}] {seconds:.3f} s; test_mean_return {summary['test_mean_return']:.6f}, "
+              f"controlled {summary['controlled_cumreward']:.6f} against uncontrolled "
+              f"{summary['baseline_cumreward']:.6f}; dumps {shapes}; launches {launches_t}")
+    return ts, rep, gen_s, launches, test_launches
+
+
+def _agree(tag, trajs, dev, tol, what, names=("obs", "actions", "mu", "sigma", "rewards",
+                                               "mask", "final_obs")):
+    """The worst error of the card's collection against the CPU's, relative
+    to each tensor's max |value|; fails above ``tol``."""
+    import torch
     worst = {}
-    for name in ("obs", "actions", "mu", "sigma", "rewards", "mask", "final_obs"):
+    for name in names:
         a, b = trajs[dev][name].cpu(), trajs["cpu"][name]
-        check(a.shape == b.shape and torch.isfinite(a).all(), f"ks-agree {name}")
+        check(a.shape == b.shape and torch.isfinite(a).all(), f"{tag} {name}")
         worst[name] = ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
-    check(trajs["cpu"]["actions"].abs().max() > 1e-3, "ks-agree: the actions are all ~0")
-    print(f"[ks-agree] B=16, 20 macro-steps x 4 ETDRK4 sub-steps, N_dns 1024, grid 16: max "
-          f"err relative to each tensor's max |value| {json.dumps(worst)} (tolerance "
-          f"{KS_AGREE_TOL:g}: float32 cuFFT and the MLP kernel against pocketfft and the "
+    check(trajs["cpu"]["actions"].abs().max() > 1e-3, f"{tag}: the actions are all ~0")
+    print(f"[{tag}] {what}: max err relative to each tensor's max |value| {json.dumps(worst)} "
+          f"(tolerance {tol:g}: float32 cuFFT and the MLP kernel against pocketfft and the "
           f"module)")
-    check(max(worst.values()) <= KS_AGREE_TOL, f"card and CPU KS collections disagree: {worst}")
+    check(max(worst.values()) <= tol, f"[{tag}] card and CPU collections disagree: {worst}")
+
+
+def phase_fd_agree(dev):
+    """A deterministic burger-fd collection at the run-927 widths (16 envs,
+    N_dns 1024, grid 256, 256 actions, a width-32 policy), 20 macro-steps of
+    10 FD sub-steps, on the CPU; then the same episodes on the card, which
+    take the CPU's actions, and the card's policy on the CPU's observations,
+    with the same weights and the same float32 DNS pool, at FD_AGREE_TOL.
+    Then the card's own closed-loop collection against the CPU's, at
+    FD_CLOSED_TOL: there the policy amplifies the float32 rounding of its
+    version-0 observation d2u/dx2 (a second difference of the field)."""
+    import dataclasses
+    import torch
+    from marlpde_tpu_torch.envs import burger_env, registry, rollout
+    from marlpde_tpu_torch.rl import vracer
+    from marlpde_tpu_torch.train import trainer
+
+    kw = dict(N_dns=1024, grid_size=256, num_actions=256, dt=1e-3, T=0.2, nu=0.02,
+              episode_length=20, ic_case="turbulence", scheme="fd")
+    pool = burger_env.make_dns_pool(burger_env.BurgerEnvConfig(**kw), 1, device="cpu")
+    pools = {"cpu": pool, dev: burger_env.DnsPool(**{
+        f.name: getattr(pool, f.name).to(dev) for f in dataclasses.fields(burger_env.DnsPool)})}
+    envs = {d: registry.make_env("burger", pool=pools[d], **kw) for d in pools}
+    rl_cfg = trainer.default_rl_config(envs["cpu"], width=32, init_noise=0.005, sigma_max=0.05)
+    ts = {d: vracer.init_train(rl_cfg, torch.Generator(device=d).manual_seed(9), device=d)
+          for d in pools}
+    with torch.no_grad():       # a non-zero mean head: the actions are not 0
+        for p in ts["cpu"].net.parameters():
+            p.add_(torch.randn(p.shape, generator=torch.Generator().manual_seed(1)) * 0.05)
+    ts[dev].net.load_state_dict(ts["cpu"].net.state_dict())
+    cpu, _ = rollout.collect_episodes(envs["cpu"], rl_cfg, ts["cpu"], None, 16,
+                                      deterministic=True)
+    env = envs[dev]
+    state, obs = env.reset_batch(env.consts, None, torch.arange(16, device=dev))
+    card = dict(obs=[], mu=[], sigma=[], rewards=[], mask=[])
+    for t in range(env.episode_length):
+        _, mu, sigma = vracer.policy_apply(rl_cfg, ts[dev], cpu["obs"][:, t].to(dev))
+        card["obs"].append(obs)
+        card["mu"].append(mu)
+        card["sigma"].append(sigma)
+        card["mask"].append((~state.done).to(obs.dtype))
+        state, obs, rew, _, _ = env.step(env.consts, state, cpu["actions"][:, t].to(dev))
+        card["rewards"].append(rew)
+    card = {k: torch.stack(v, dim=1) for k, v in card.items()}
+    card["final_obs"] = obs
+    _agree("fd-agree", {"cpu": cpu, dev: card}, dev, FD_AGREE_TOL,
+           "B=16, 20 macro-steps x 10 FD sub-steps, N_dns 1024, grid 256, 256 actions, the "
+           "card's env on the CPU's actions and its policy on the CPU's observations",
+           names=("obs", "mu", "sigma", "rewards", "mask", "final_obs"))
+    closed, _ = rollout.collect_episodes(env, rl_cfg, ts[dev], None, 16, deterministic=True)
+    _agree("fd-agree", {"cpu": cpu, dev: closed}, dev, FD_CLOSED_TOL,
+           "the same, closed loop: the card's collection against the CPU's")
+
+
+def phase_variants():
+    """One short run on the card of each other Burgers preset and flag set
+    (VARIANTS) through the CLI, at VARIANT_DEPTH; coupled-burger and burger
+    --dforce (the CLI's default MSE reward) also --test.  Then burger-lockstep,
+    which the CLI does not name (in JAX either), through registry.make_env and
+    trainer.train at the same depth.  Returns the launches of all of them."""
+    import numpy as np
+    import torch
+    from marlpde_tpu_torch import run
+    from marlpde_tpu_torch.envs import registry
+    from marlpde_tpu_torch.kernels import abcn, mlp
+    from marlpde_tpu_torch.train import trainer
+
+    total = dict(abcn_macro_step=0, mlp_forward=0)
+
+    def add(tag, launches):
+        check(launches["mlp_forward"] > 0 and launches["abcn_macro_step"] == 0,
+              f"{tag}: launches {launches}")
+        for k in total:
+            total[k] += launches[k]
+
+    for i, variant in enumerate(VARIANTS):
+        argv = variant.split() + VARIANT_DEPTH + ["--run", str(i)]
+        tag = "variants " + variant
+        t0 = time.perf_counter()
+        ts, rep, hist, rows, launches = _cli(argv, tag)
+        seconds = time.perf_counter() - t0
+        if "--dforce" in argv or argv[0] == "coupled-burger":
+            check(hist["gen"] == [1, 2] and _finite(hist["mean_return"])
+                  and hist["blowups"] == [0, 0], f"{tag}: {hist['gen']}, returns "
+                                                 f"{hist['mean_return']}, blowups {hist['blowups']}")
+        else:
+            # the CLI's default: a generation that lost episodes to blowups is
+            # cut short (the -inf truncation penalty, shorter episodes), the
+            # others are whole; the run goes on until 1600 live experiences
+            for ret, n_blown, ep_len in zip(hist["mean_return"], hist["blowups"],
+                                            hist["mean_ep_len"]):
+                check((ret == -np.inf and ep_len < 50) if n_blown else
+                      (np.isfinite(ret) and ep_len == 50),
+                      f"{tag}: return {ret}, blowups {n_blown}, episode length {ep_len}")
+            check(len(hist["gen"]) >= 2 and hist["experiences"][-1] >= 1600,
+                  f"{tag}: generations {hist['gen']}, experiences {hist['experiences']}")
+        _check_state_on_card(tag, ts, rep)
+        add(tag, launches)
+        line = (f"[{tag}] {seconds:.3f} s for {len(hist['gen'])} generations; returns "
+                f"{', '.join(f'{r:.6g}' for r in hist['mean_return'])}; blowups "
+                f"{hist['blowups']}, episode lengths {hist['mean_ep_len']}; launches {launches}")
+        if variant in ("coupled-burger", "burger --dforce"):
+            summary, _, test_s, launches_t = _main_json(argv + ["--test"], tag + " --test")
+            check(_finite([summary["test_mean_return"], summary["baseline_cumreward"],
+                           summary["controlled_cumreward"]]), f"{tag} --test: {summary}")
+            add(tag + " --test", launches_t)
+            line += (f"; --test {test_s:.3f} s, controlled {summary['controlled_cumreward']:.6g}"
+                     f" against uncontrolled {summary['baseline_cumreward']:.6g}, launches "
+                     f"{launches_t}")
+        print(line)
+
+    # the CLI's config and learner for these flags (updates in the second
+    # generation), with the lockstep DNS in place of the pool
+    pool_env, rl_cfg, tc = run.make_workload(run.build_parser().parse_args(
+        "burger --dforce --specreward --ic turbulence --nunoise --rstart 800 --maxupd 50".split()
+        + VARIANT_DEPTH))
+    env = registry.make_env("burger-lockstep", cfg=pool_env.cfg)
+    abcn.launches = 0
+    mlp.launches = 0
+    t0 = time.perf_counter()
+    ts, rep, hist = trainer.train(env, rl_cfg, tc, verbose=False)
+    torch.cuda.synchronize()
+    launches = dict(abcn_macro_step=abcn.launches, mlp_forward=mlp.launches)
+    check(hist["gen"] == [1, 2] and _finite(hist["mean_return"]) and hist["blowups"] == [0, 0],
+          f"variants burger-lockstep: returns {hist['mean_return']}, blowups {hist['blowups']}")
+    _check_state_on_card("variants burger-lockstep", ts, rep)
+    add("variants burger-lockstep", launches)
+    print(f"[variants burger-lockstep] {time.perf_counter() - t0:.3f} s for 2 generations of 16 "
+          f"fresh lockstep DNS (N_dns {env.cfg.N_dns}, nunoise) beside the LES; returns "
+          f"{', '.join(f'{r:.6g}' for r in hist['mean_return'])}; launches {launches}; "
+          f"updates {hist['updates']}, replay rows {rep.cursor}")
+    return total
 
 
 def ptxas_by_instantiation(log):
@@ -861,20 +1105,31 @@ def main() -> int:
         os.chdir(workdir)
         try:
             ts, rep, launches_cli = phase_cli(workdir)
-            phase_cli_breakdown(ts, rep)
+            phase_cli_breakdown("cli-breakdown", RUN_918, ts, rep, "10 envs x 500 macro-steps",
+                                2500)
             launches_cli_test = phase_cli_test(workdir)
             launches_w256 = phase_cli_w256()
             del ts, rep
             ts, rep, gen_s, launches_ks, launches_ks_test = phase_ks(workdir)
-            phase_ks_breakdown(ts, rep, gen_s)
+            phase_cli_breakdown("ks-breakdown", RUN_926, ts, rep,
+                                "16 envs x 500 macro-steps x 4 ETDRK4 sub-steps", 1000, gen_s)
             del ts, rep
+            ts, rep, gen_s, launches_fd, launches_fd_test = phase_fd(workdir)
+            phase_cli_breakdown("fd-breakdown", RUN_927, ts, rep,
+                                "10 envs x 500 macro-steps x 10 FD sub-steps", 2500, gen_s)
+            del ts, rep
+            launches_variants = phase_variants()
         finally:
             os.chdir(here)
     phase_fast_off(dev)
     phase_ks_agree(dev)
+    phase_fd_agree(dev)
     by_path = dict(main=launches_main, cli=launches_cli, cli_w256=launches_w256,
-                   cli_test=launches_cli_test, ks=launches_ks, ks_test=launches_ks_test)
-    # the Burgers paths run both kernels; KS has its own solver and runs the MLP only
+                   cli_test=launches_cli_test, ks=launches_ks, ks_test=launches_ks_test,
+                   fd=launches_fd, fd_test=launches_fd_test, variants=launches_variants)
+    # the flagship Burgers paths run both kernels; KS has its own solver, and
+    # the other Burgers configs run the general per-env env (torch.fft): the
+    # MLP kernel only
     burgers = ("main", "cli", "cli_w256", "cli_test")
     for k in kernels:
         k["launches"] = launches_cli[k["name"]]

@@ -1,13 +1,16 @@
 """marlpde_tpu_torch: the PyTorch + CUDA (Hopper) port of marlpde_tpu.
 
 The package mirrors ``marlpde_tpu/`` file for file, so each module's
-counterpart is found under the same path.  It covers the ``burger``,
-``burger-marl`` and ``ks`` CLI (``python -m marlpde_tpu_torch.run``): on the
-spectral-reward Burgers configs the whole-batch and the general per-env env,
-the KS env on its ETDRK4 solver, VRACER in both minibatch modes,
-checkpoint/resume, testing and diagnostics, and the --test stage (evaluation
-sweeps, SGS diagnostics, makePlot, the async .npy sink).
-The two TPU kernels of that path are CUDA kernels written for ``sm_90a``
+counterpart is found under the same path.  It covers the Burgers family
+(``burger``, ``burger-marl``, ``burger-fd``, ``burger-jax``,
+``coupled-burger`` and ``burger-lockstep``: the ABCN, FD, RK3 and compact-FD
+schemes, stochastic forcing, the ssm/dsm closures, MSE, spectral and coupled
+rewards) and ``ks``, through the CLI (``python -m marlpde_tpu_torch.run``):
+the whole-batch and the general per-env Burgers env, the KS env on its
+ETDRK4 solver, VRACER in both minibatch modes, checkpoint/resume, testing and
+diagnostics, and the --test stage (evaluation sweeps, SGS diagnostics,
+makePlot, the async .npy sink).
+The two TPU kernels of these paths are CUDA kernels written for ``sm_90a``
 (``csrc/``), wrapped in ``kernels/``; each wrapper runs its plain PyTorch
 version on CPU tensors and launches the kernel, or raises, on CUDA tensors.
 

@@ -1,9 +1,14 @@
-"""Initial conditions needed by the ported slice.
+"""Burgers initial conditions (port of marlpde_tpu/core/ic.py:24-142).
 
-Copied from marlpde_tpu/core/ic.py:24-110 (numpy only; the port may not import
-the JAX package): the turbulence IC's LCG (a=1103515245, c=12345, m=2^13) in
-closed form, and the host float64 turbulence IC (Burger.py:227-259) that the
-DNS pool build uses.
+Parity targets:
+  * 'sinus'      sin(4*pi*(x+offset)/L)                    (Burger.py:224)
+  * 'turbulence' LCG-phase k^-5/3 spectrum + RMS rescale   (Burger.py:227-259)
+  * 'forced'     seeded-normal low-amplitude random field  (Burger.py:265-273)
+
+The turbulence IC's LCG (a=1103515245, c=12345, m=2^13) is evaluated in closed
+form (a^k and c*sum a^j precomputed mod m), so a whole batch of envs builds its
+ICs with one elementwise pass and one matmul on the device
+(``burger_turbulence``); the host float64 versions serve the DNS pool build.
 """
 
 from __future__ import annotations
@@ -11,6 +16,7 @@ from __future__ import annotations
 from functools import lru_cache
 
 import numpy as np
+import torch
 
 LCG_A = 1103515245
 LCG_C = 12345
@@ -51,4 +57,65 @@ def burger_turbulence_numpy(tseed, offset, x, L):
         idx += 1
         if idx > 100:
             break
+    return u0
+
+
+def turbulence_phases(tseeds, N: int, dtype, device=None):
+    """Phases of the turbulence IC for wavenumbers k=1..N-1, one row per seed:
+    rng_0 = 123456789 + tseed; rng_k = (a*rng_{k-1} + c) mod m;
+    phase_k = rng_k/m * 2*pi.  tseeds: (B,) ints.  Returns (B, N-1)."""
+    ak, ck = _lcg_closed_form(N - 1)
+    rng0 = torch.remainder(123456789 + torch.as_tensor(tseeds, dtype=torch.int64,
+                                                       device=device), LCG_M)
+    rng_k = torch.remainder(torch.as_tensor(ak, device=device) * rng0[:, None]
+                            + torch.as_tensor(ck, device=device), LCG_M)
+    return rng_k.to(dtype) / LCG_M * 2.0 * np.pi
+
+
+def burger_turbulence(tseeds, offset, x, L):
+    """The turbulence IC (Burger.py:227-259) for a batch of seeds, on x's
+    device and in x's dtype: u0 = 1 + sum_{k=1}^{N-1} sqrt(2*Ek) sin(k*2*pi*(x+offset)/L
+    + phase_k), Ek = 5^{-5/3} for k<=5 else k^{-5/3}, then RMS-rescaled into
+    [0.65, 0.75] by the reference's capped fixed-point loop, run per env on the
+    device (a row stops where its criterion is met).  tseeds: (B,) ints;
+    offset: scalar or (B,).  Returns (B, N)."""
+    N = x.shape[-1]
+    dtype, device = x.dtype, x.device
+    kk = torch.arange(1, N, dtype=dtype, device=device)
+    Ek = torch.where(kk <= 5, torch.full_like(kk, 5.0 ** (-5.0 / 3.0)), kk ** (-5.0 / 3.0))
+    w = torch.sqrt(2.0 * Ek)
+    phases = turbulence_phases(tseeds, N, dtype, device)                    # (B, N-1)
+    xo = x + torch.as_tensor(offset, dtype=dtype, device=device).reshape(-1, 1)
+    theta = kk[:, None] * (2.0 * np.pi * xo / L)[:, None, :] + phases[:, :, None]
+    u0 = 1.0 + torch.einsum("k,bkn->bn", w, torch.sin(theta))
+
+    def rms(u):
+        return torch.sqrt(torch.sum((u - 1.0) ** 2, dim=-1) / N)
+
+    crit = rms(u0)
+    for _ in range(101):        # the reference's while loop: at most 101 rescalings
+        active = (crit < 0.65) | (crit > 0.75)
+        if not bool(active.any()):
+            break
+        u0 = torch.where(active[:, None], u0 * (0.7 / crit)[:, None], u0)
+        crit = torch.where(active, rms(u0), crit)
+    return u0
+
+
+def burger_sinus(offset, x, L):
+    """sin(4*pi*(x+offset)/L)   (Burger.py:224)"""
+    return torch.sin(4.0 * np.pi * (x + offset) / L)
+
+
+def burger_forced_numpy(seed, x, L):
+    """The 'forced' IC (Burger.py:265-273), drawing from numpy's legacy global
+    generator as the reference does: it reseeds ``np.random`` with ``seed``."""
+    np.random.seed(seed)
+    N = x.shape[-1]
+    A = 1.0 / N
+    u0 = np.zeros(N)
+    for k in range(1, N):
+        r1 = np.random.normal(loc=0.0, scale=1.0)
+        r2 = np.random.normal(loc=0.0, scale=1.0)
+        u0 += r1 * A * np.sin(2.0 * np.pi * (k * x / L + r2))
     return u0

@@ -49,10 +49,18 @@ def periodic_spline_eval(y, M, xq, L):
     points ``xq``.
 
     y, M: (..., N) values/coefficients on x_j = j*L/N.  xq: (Q,) query points
-    (any real; wrapped into [0, L)).  Returns (..., Q).
+    shared by every row, or (..., Q) queries of each row (any real; wrapped
+    into [0, L)).  Returns (..., Q).
     """
     j, jp, t = _cell(xq, L, y.shape[-1], y.dtype, y.device)
-    return _cubic(y[..., j], y[..., jp], M[..., j], M[..., jp], t)
+    if j.ndim == 1:
+        return _cubic(y[..., j], y[..., jp], M[..., j], M[..., jp], t)
+    batch = torch.broadcast_shapes(y.shape[:-1], j.shape[:-1])
+
+    def at(a, i):
+        return torch.gather(a.expand(batch + a.shape[-1:]), -1, i.expand(batch + i.shape[-1:]))
+
+    return _cubic(at(y, j), at(y, jp), at(M, j), at(M, jp), t)
 
 
 def periodic_spline_eval_uniform(y, M, offset, L, Q):

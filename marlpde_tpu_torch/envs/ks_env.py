@@ -101,6 +101,14 @@ class KSDnsPool:
     ek_ktt: torch.Tensor    # (P, T+1, g//2) cumulative-mean spectrum, modes 0..g/2-1
     nu: torch.Tensor        # (P,) placeholder (KS nu == 1)
 
+    @property
+    def device(self) -> torch.device:
+        return self.uu.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.uu.dtype
+
 
 @dataclasses.dataclass
 class KSEnvState:

@@ -1,12 +1,19 @@
-"""Workload registry (port of marlpde_tpu/envs/registry.py:32-92,183-186).
+"""Workload registry: each reference driver becomes a config preset producing a
+uniform functional Env (port of marlpde_tpu/envs/registry.py:32-92,141-192).
 
-The port builds the Burgers presets 'burger' (run-vracer-burger.py) and
-'burger-marl' (run-vracer-burger-marl.py) on the spectral-reward ABCN
-configs: the whole-batch env where it implements the config
-(``fast_burger_ok``) and ``fast`` is not 'off', the general per-env env
-otherwise.  It builds 'ks' (run-vracer-ks.py): the per-env KS env on the
-ETDRK4 solver, spectral or pointwise reward.  Every other preset, and the
-Burgers configs neither Burgers env takes (``general_burger_ok``), raise
+Driver map (reference -> preset name):
+  run-vracer-burger.py            -> 'burger'
+  run-vracer-burger-marl.py       -> 'burger-marl'
+  run-vracer-burger-fd.py         -> 'burger-fd'
+  run-vracer-coupled-burger.py    -> 'coupled-burger'
+  run-vracer-burger-jax.py        -> 'burger-jax'  (the spectral RK3 scheme)
+  (the nunoise path of burger_environment.py:57-75) -> 'burger-lockstep'
+  run-vracer-ks.py                -> 'ks'
+
+Every Burgers config runs on the general per-env env (``burger_env.step``,
+torch.fft); where the whole-batch env implements the config
+(``fast_burger_ok``) and ``fast`` is not 'off', its pair on the ABCN op is
+attached as well.  The diffusion, advection and Laplace presets raise
 NotImplementedError until their slice lands (ROADMAP queue 1).
 """
 
@@ -34,15 +41,6 @@ def fast_burger_ok(cfg: burger_env.BurgerEnvConfig) -> bool:
             and not cfg.nunoise and np.isinf(cfg.state_bound))
 
 
-def general_burger_ok(cfg: burger_env.BurgerEnvConfig) -> bool:
-    """Does the port's general per-env env (burger_env.step) take this config?
-    The spectral-reward ABCN closure on a pool, without stochastic forcing or
-    the ssm/dsm closures (those, the MSE and coupled rewards and the other
-    schemes are ROADMAP item 12)."""
-    return (cfg.scheme == "abcn" and cfg.spectral_reward and cfg.dns_mode == "pool"
-            and not cfg.coupled and not (cfg.ssm or cfg.dsm or cfg.forcing))
-
-
 def make_burger_env(cfg: burger_env.BurgerEnvConfig = None, n_dns: int = 1,
                     pool=None, dtype=torch.float32, fast: str = "auto",
                     device=None, **overrides) -> Env:
@@ -58,23 +56,56 @@ def make_burger_env(cfg: burger_env.BurgerEnvConfig = None, n_dns: int = 1,
         cfg = dataclasses.replace(cfg, **overrides)
     if fast not in ("auto", "pallas", "off"):
         raise ValueError(f"[registry] unknown fast={fast!r}")
-    if not general_burger_ok(cfg):
-        raise NotImplementedError(f"[registry] this Burgers configuration {_NOT_PORTED}: "
-                                  f"{cfg}")
     if pool is None:
         pool = burger_env.make_dns_pool(cfg, n_dns, dtype=dtype,
                                         device=resolve_device(device))
+    name = "burger-fd" if cfg.scheme == "fd" else (
+        "burger-marl" if cfg.num_agents > 1 else "burger")
     batch_reset = batch_step = None
     if fast != "off" and fast_burger_ok(cfg):
         batch_reset = partial(burger_fast.reset, cfg)
         batch_step = partial(burger_fast.step, cfg)
     return Env(
-        name="burger-marl" if cfg.num_agents > 1 else "burger", cfg=cfg,
+        name=name, cfg=cfg,
         reset=partial(burger_env.reset, cfg), step=partial(burger_env.step, cfg),
         obs_dim=cfg.obs_dim, num_agents=cfg.num_agents,
         act_dim=cfg.actions_per_agent, episode_length=cfg.episode_length,
         action_low=-5.0, action_high=5.0,   # run-vracer-burger.py:156-157
         consts=pool, batch_reset=batch_reset, batch_step=batch_step)
+
+
+def make_burger_lockstep_env(cfg: burger_env.BurgerEnvConfig = None, dtype=torch.float32,
+                             device=None, **overrides) -> Env:
+    """Fresh-DNS-per-episode mode (the nunoise path), on ``device`` (None: the
+    card) in ``dtype``; no pool."""
+    overrides.setdefault("nunoise", True)
+    if cfg is None:
+        cfg = burger_env.BurgerEnvConfig(dns_mode="lockstep", **overrides)
+    else:
+        cfg = dataclasses.replace(cfg, dns_mode="lockstep", **overrides)
+    return Env(
+        name="burger-lockstep", cfg=cfg,
+        reset=partial(burger_env.reset_lockstep, cfg),
+        step=partial(burger_env.step_lockstep, cfg),
+        obs_dim=cfg.obs_dim, num_agents=cfg.num_agents,
+        act_dim=cfg.actions_per_agent, episode_length=cfg.episode_length,
+        action_low=-5.0, action_high=5.0,
+        consts=burger_env.LockstepConsts(device=resolve_device(device), dtype=dtype))
+
+
+def make_coupled_burger_env(**kw) -> Env:
+    env = make_burger_env(coupled=True, spectral_reward=False, **kw)
+    # run-vracer-coupled-burger.py:68-69: actions in [-1, 1]
+    return dataclasses.replace(env, name="coupled-burger", action_low=-1.0, action_high=1.0)
+
+
+def make_burger_jax_env(**kw) -> Env:
+    """The differentiable-Burgers closure env (run-vracer-burger-jax.py): the
+    spectral RK3 scheme (Burger_jax.py:42-66), state = d2udx2
+    (Burger_jax.py:499-508, i.e. version 0), actions in [-5, 5]
+    (run-vracer-burger-jax.py:91-93)."""
+    env = make_burger_env(scheme="rk3", version=kw.pop("version", 0), **kw)
+    return dataclasses.replace(env, name="burger-jax")
 
 
 def make_ks_env(cfg: ks_env.KSEnvConfig = None, n_dns: int = 1, pool=None,
@@ -98,14 +129,18 @@ def make_ks_env(cfg: ks_env.KSEnvConfig = None, n_dns: int = 1, pool=None,
 
 MAKERS = {
     "burger": make_burger_env,
+    "burger-jax": make_burger_jax_env,
+    "burger-lockstep": make_burger_lockstep_env,
+    "coupled-burger": make_coupled_burger_env,
     "burger-marl": lambda **kw: make_burger_env(num_agents=kw.pop("num_agents", 32), **kw),
+    "burger-fd": lambda **kw: make_burger_env(
+        scheme="fd", state_bound=kw.pop("state_bound", 1e6), **kw),
     "ks": make_ks_env,
 }
 
 # presets of the JAX registry that wait for a later slice
-PENDING = ("burger-jax", "burger-lockstep", "coupled-burger", "burger-fd",
-           "diffusion-simple", "diffusion-error", "diffusion-stencil3",
-           "advection-simple", "laplace")
+PENDING = ("diffusion-simple", "diffusion-error", "diffusion-stencil3", "advection-simple",
+           "laplace")
 
 
 def make_env(name: str, **overrides) -> Env:

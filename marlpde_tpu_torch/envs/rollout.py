@@ -26,7 +26,9 @@ class Env:
     ``reset``/``step`` are the env's general pair, ``batch_reset``/
     ``batch_step`` the optional whole-batch fast pair (envs/burger_fast.py);
     both pairs take and return a leading env axis.  ``consts`` holds large
-    runtime data (the DNS pool)."""
+    runtime data (the DNS pool) or, for an env without a pool, a holder of
+    its device and dtype; either way ``consts.device`` and ``consts.dtype``
+    say where and in which dtype the env's tensors live."""
 
     name: str
     cfg: Any
@@ -43,12 +45,29 @@ class Env:
     batch_step: Callable | None = None
 
     @property
+    def device(self) -> torch.device:
+        return placement(self.consts)[0]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return placement(self.consts)[1]
+
+    @property
     def whole_batch(self) -> bool:
         return self.batch_reset is not None and self.batch_step is not None
 
     def reset_batch(self, consts, generator, counts):
         """Reset through the whole-batch pair when there is one."""
         return (self.batch_reset if self.whole_batch else self.reset)(consts, generator, counts)
+
+
+def placement(consts):
+    """(device, dtype) of an env's consts; raises where they carry neither."""
+    device, dtype = getattr(consts, "device", None), getattr(consts, "dtype", None)
+    if device is None or dtype is None:
+        raise ValueError(f"[rollout] the env's consts {type(consts).__name__} carry no "
+                         f"device and dtype")
+    return device, dtype
 
 
 def collect_episodes(env: Env, rl_cfg, ts, generator, batch_size: int,
@@ -105,7 +124,7 @@ def zero_action_episode(env: Env, generator, batch_size: int = 1, episode_base: 
     full episode of zero actions through the general pair; returns
     (traj dict of (B, T, ...) obs, rewards, done; final states)."""
     consts = env.consts if consts is None else consts
-    device = consts.uu.device if hasattr(consts, "uu") else None
+    device = placement(consts)[0]
     counts = episode_base + torch.arange(batch_size, device=device)
     state, obs = env.reset(consts, generator, counts)
     zero = torch.zeros((batch_size, env.num_agents, env.act_dim), dtype=obs.dtype,

@@ -78,16 +78,12 @@ def default_rl_config(env: Env, **overrides) -> vracer.VracerConfig:
     return vracer.VracerConfig(**kw)
 
 
-def _device_dtype(env: Env):
-    return env.consts.uu.device, env.consts.uu.dtype
-
-
 def make_replay(env: Env, rl_cfg: vracer.VracerConfig):
     """The trainer's replay layout, on the env's device (also the template a
     checkpointed replay loads into): the episode-slot ring for episode
     minibatches, the flat experience ring with korali's REFER metadata for
     experience minibatches."""
-    device, dtype = _device_dtype(env)
+    device, dtype = env.device, env.dtype
     if rl_cfg.minibatch_mode == "experience":
         return replay_flat.init_flat(rl_cfg.replay_max_experiences, rl_cfg.flat_episode_capacity,
                                      env.num_agents, env.obs_dim, env.act_dim,
@@ -217,7 +213,7 @@ def train(env: Env, rl_cfg: Optional[vracer.VracerConfig] = None,
     rl_cfg = rl_cfg or default_rl_config(env)
     if tc.save_episodes_dir is not None:
         raise NotImplementedError(f"[trainer] TrainerConfig.save_episodes_dir {_NOT_PORTED}")
-    device, dtype = _device_dtype(env)
+    device, dtype = env.device, env.dtype
     generator = torch.Generator(device=device)
     generator.manual_seed(tc.seed)
     ts = (vracer.init_train(rl_cfg, generator, dtype=dtype, device=device)

@@ -1,11 +1,12 @@
-"""Profile the run-926 KS generation's two phases on one NVIDIA card.
+"""Profile a CLI generation's two phases on one NVIDIA card.
 
-    python3 scripts/torch_ks_profile.py
+    python3 scripts/torch_profile.py [ks|burger-fd]
 
-Builds the run-926 env and learner (the flags of scripts/tpu_ks_926.sh)
-through ``run.make_workload``, collects two generations (16 episodes each)
-into the replay so that updates can sample it, then times two windows: one
-collection of 16 episodes of 500 macro-steps, and 100 experience-mode
+Builds the env and learner of the run-926 KS flags (scripts/tpu_ks_926.sh;
+the default) or of the run-927 burger-fd flags (chip_smoke.py's RUN_927)
+through ``run.make_workload``, collects two generations into the replay so
+that updates can sample it, then times two windows: one generation's
+collection (16 or 10 episodes of 500 macro-steps), and 100 experience-mode
 updates at mbsize 256.  Each window runs once without the profiler (wall
 seconds on the host clock, ended by a sync) and once under torch.profiler
 (CPU and CUDA activity), which gives the device seconds (the sum of the
@@ -26,7 +27,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
-from chip_smoke import RUN_926  # noqa: E402
+from chip_smoke import RUN_926, RUN_927  # noqa: E402
 from marlpde_tpu_torch import run  # noqa: E402
 from marlpde_tpu_torch.envs import rollout  # noqa: E402
 from marlpde_tpu_torch.rl import vracer  # noqa: E402
@@ -68,12 +69,14 @@ def profiled(label, fn, per, unit):
 
 def main() -> int:
     if not torch.cuda.is_available():
-        print("torch_ks_profile: needs a CUDA card", file=sys.stderr)
+        print("torch_profile: needs a CUDA card", file=sys.stderr)
         return 1
+    which = sys.argv[1] if len(sys.argv) > 1 else "ks"
+    argv = {"ks": RUN_926, "burger-fd": RUN_927}[which]
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
-    env, rl_cfg, tc = run.make_workload(run.build_parser().parse_args(RUN_926))
-    dev = env.consts.uu.device
+    env, rl_cfg, tc = run.make_workload(run.build_parser().parse_args(argv))
+    dev = env.device
     g = torch.Generator(device=dev).manual_seed(0)
     ts = vracer.init_train(rl_cfg, g, device=dev)
     rep = trainer.make_replay(env, rl_cfg)
@@ -82,9 +85,10 @@ def main() -> int:
         ts, rep = trainer.insert_generation(rl_cfg, ts, rep, traj)
     trainer.run_updates(rl_cfg, ts, rep, g, 5)           # warm-up
     T = env.episode_length
-    profiled("ks collect", lambda: rollout.collect_episodes(env, rl_cfg, ts, g, tc.num_envs, 32),
+    profiled(f"{which} collect",
+             lambda: rollout.collect_episodes(env, rl_cfg, ts, g, tc.num_envs, 2 * tc.num_envs),
              T, "macro-step")
-    profiled("ks updates", lambda: trainer.run_updates(rl_cfg, ts, rep, g, N_UPDATES),
+    profiled(f"{which} updates", lambda: trainer.run_updates(rl_cfg, ts, rep, g, N_UPDATES),
              N_UPDATES, "update")
     return 0
 

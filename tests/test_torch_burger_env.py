@@ -134,17 +134,22 @@ def test_registry_covers_the_slice_only(pools):
     assert env.obs_dim == CFG.obs_dim and env.act_dim == CFG.actions_per_agent
     assert env.whole_batch
     # fast='off' and configs the whole-batch env does not take get the
-    # general per-env env; the MSE reward and the closures are not ported
-    for off_fast in (dict(fast="off"), dict(dforce=False), dict(nunoise=True)):
+    # general per-env env, the MSE reward and the closures included
+    for off_fast in (dict(fast="off"), dict(dforce=False), dict(nunoise=True),
+                     dict(spectral_reward=False), dict(ssm=True), dict(forcing=True)):
         env = treg.make_env("burger", pool=tpool, **{**kw, **off_fast})
         assert not env.whole_batch and env.step.func is tbe.step
-    for off_slice in (dict(spectral_reward=False), dict(ssm=True), dict(forcing=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            treg.make_env("burger", pool=tpool, **{**kw, **off_slice})
-    for off_slice in (dict(spectral_reward=False), dict(forcing=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tbe.make_dns_pool(dataclasses.replace(tcfg(CFG), **off_slice), 1, device="cpu")
-    for pending in ("burger-fd", "diffusion-simple"):
+    # as in JAX, the solver config's assertions and the step's scheme check
+    # refuse what the solver does not take, at the first reset or step
+    for bad, err in ((dict(ssm=True, dsm=True), AssertionError),
+                     (dict(ssmforce=True, dforce=False), AssertionError),
+                     (dict(scheme="no-such-scheme"), ValueError)):
+        env = treg.make_env("burger", pool=tpool, **{**kw, **bad})
+        with pytest.raises(err):
+            st, _ = env.reset(env.consts, None, torch.arange(2))
+            env.step(env.consts, st, torch.zeros(2, env.num_agents, env.act_dim,
+                                                 dtype=torch.float64))
+    for pending in ("advection-simple", "diffusion-simple"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             treg.make_env(pending)
     with pytest.raises(ValueError):

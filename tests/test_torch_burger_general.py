@@ -88,11 +88,17 @@ def test_simulate_unforced_with_correction():
 
 
 def test_solver_refuses_what_it_does_not_cover():
-    for kw in (dict(forcing=True), dict(ssm=True), dict(scheme="rk3")):
-        cfg = tburger.BurgerConfig(N=16, **kw)
-        st = tburger.init(cfg, u0=torch.zeros(1, 16, dtype=torch.float64))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tburger.step(cfg, st, torch.zeros(1, 16, dtype=torch.float64))
+    """An unknown scheme raises at the step; both closures at once, and
+    ssmforce without dforce, at the config (Burger.py:113-115), as in JAX."""
+    cfg = tburger.BurgerConfig(N=16, scheme="rk4")
+    st = tburger.init(cfg, u0=torch.zeros(1, 16, dtype=torch.float64))
+    with pytest.raises(ValueError, match="unknown scheme"):
+        tburger.step(cfg, st, torch.zeros(1, 16, dtype=torch.float64))
+    for kw in (dict(ssm=True, dsm=True), dict(ssmforce=True, dforce=False)):
+        with pytest.raises(AssertionError):
+            tburger.BurgerConfig(N=16, **kw)
+        with pytest.raises(AssertionError):
+            jburger.BurgerConfig(N=16, **kw)
 
 
 @pytest.fixture(scope="module")

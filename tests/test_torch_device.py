@@ -1,5 +1,6 @@
 """The port's entry points run on the card unless the caller asks for the CPU:
-``device.resolve_device(None)``, ``registry.make_env`` (Burgers and KS) and
+``device.resolve_device(None)``, ``registry.make_env`` (every Burgers preset
+and KS) and
 ``run.main`` / ``run.make_workload`` without a device (training, KS and the
 --test stage) raise where torch.cuda is not available, and ``device="cpu"``
 runs.  torch.cuda.is_available is patched to
@@ -49,10 +50,14 @@ def test_resolve_device_cpu_runs(no_card, asked):
     assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
 
 
-@pytest.mark.parametrize("name", ["burger", "burger-marl"])
+@pytest.mark.parametrize("name", ["burger", "burger-marl", "burger-fd", "burger-jax",
+                                  "coupled-burger", "burger-lockstep"])
 def test_make_env_without_device_raises_without_a_card(no_card, name):
+    # the coupled preset sets its own reward
+    kw = {k: v for k, v in ENV_KW.items()
+          if not (name == "coupled-burger" and k == "spectral_reward")}
     with pytest.raises(RuntimeError, match=NO_CARD):
-        registry.make_env(name, **ENV_KW)
+        registry.make_env(name, **kw)
 
 
 def test_make_env_on_the_cpu_when_asked(no_card):

@@ -307,3 +307,56 @@ def test_ks_step_on_card_matches_cpu(cuda, dtype, tol):
                 (states[cuda].solver.u.cpu(), states["cpu"].solver.u)]:
             assert torch.isfinite(y).all()
             assert (x - y).abs().max().item() <= tol * max(1.0, y.abs().max().item())
+
+
+@pytest.mark.parametrize("R", [10, 5000])
+def test_mlp_kernel_at_the_burger_fd_shape(cuda, R):
+    """run-vracer-burger-fd.py's policy: obs 256, 256 actions, width 32, iex
+    0.005 (sigma_max 0.05, the CLI's default); R=10 acting rows, R=5000
+    insert rows.  Layer 1 loops over the 256 inputs in shared memory, whose
+    fixed part (1024 + 4 (W D + W + 128 D) bytes, ~165 KB) leaves room for one
+    8 KB W2 stage within the 227 KB opt-in limit."""
+    g = torch.Generator().manual_seed(R)
+    net = networks.VracerNet(256, 256, width=32, init_noise=0.005, sigma_max=0.05,
+                             device=cuda)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.copy_(torch.randn(p.shape, generator=g).to(cuda) * (0.5 / np.sqrt(p.shape[-1])))
+        x = torch.randn(R, 256, generator=g).to(cuda)
+        before = mlp.launches
+        out = mlp.mlp_forward(x, net)
+        torch.cuda.synchronize()
+        assert mlp.launches == before + 1
+        for o, r in zip(out, net(x)):
+            assert o.shape == r.shape and torch.isfinite(o).all()
+            assert (o - r).abs().max().item() <= 2e-5
+
+
+@pytest.mark.parametrize("noise", [0.0, 0.1], ids=["truth-channel", "spline"])
+def test_burger_fd_env_on_card_matches_cpu(cuda, noise):
+    """Six burger-fd envs (explicit-Euler FD, MSE reward; N_dns 256, grid 64)
+    through five macro-steps on the card and on the CPU, from the same float32
+    pool, offsets and actions: the truth channel's gather (noise 0) and the
+    uniform spline (noise 0.1).  Tolerance 1e-4 relative to each tensor's max
+    |value|, as chip_smoke.py's [fd-agree]: the version-0 observation
+    d2u/dx2 differences the float32 field twice, over 50 explicit steps."""
+    cfg = burger_env.BurgerEnvConfig(N_dns=256, grid_size=64, num_actions=64, dt=1e-3, T=0.05,
+                                     nu=0.02, episode_length=5, ic_case="turbulence",
+                                     scheme="fd", state_bound=1e6, noise=noise)
+    pool = burger_env.make_dns_pool(cfg, 2, device="cpu")
+    assert pool.truth_les is not None
+    pools = {"cpu": pool, cuda: burger_env.DnsPool(**{
+        k: getattr(pool, k).to(cuda) for k in ("uu", "spline_m", "v0_re", "v0_im", "ek_ktt",
+                                               "nu", "randfac1", "randfac2", "truth_les")})}
+    offsets = torch.linspace(-0.5, 0.5, 6) * noise
+    states = {d: burger_env.reset_at(cfg, pools[d], offsets.to(d), torch.arange(6, device=d))[0]
+              for d in pools}
+    g = torch.Generator().manual_seed(0)
+    for _ in range(cfg.episode_length):
+        a = torch.randn(6, 1, 64, generator=g) * 0.5
+        outs = {d: burger_env.step(cfg, pools[d], states[d], a.to(d)) for d in pools}
+        states = {d: outs[d][0] for d in pools}
+        for x, y in [(outs[cuda][k].cpu(), outs["cpu"][k]) for k in (1, 2)] + [
+                (states[cuda].solver.u.cpu(), states["cpu"].solver.u)]:
+            assert torch.isfinite(y).all()
+            assert (x - y).abs().max().item() <= 1e-4 * max(1.0, y.abs().max().item())

@@ -93,12 +93,12 @@ def test_tiny_main_trains_resumes_and_prints_one_json_line(tmp_path, monkeypatch
 
 
 @pytest.mark.parametrize("argv", [
-    ["coupled-burger", "--ic", "turbulence", "--test"], BARE + ["--mesh"],
+    ["advection-simple", "--ic", "turbulence", "--test"], BARE + ["--mesh"],
     BARE + ["--learner", "apg"], BARE + ["--save-episodes"], BARE + ["--bf16"],
     ["cmaes-burger"], ["laplace"],
-    ["burger-fd"], ["diffusion-simple"], ["coupled-burger"], ["burger-jax"],
-    ["burger-marl", "--ic", "turbulence", "--NDNS", "64"],        # MSE reward
-    BARE + ["--ssm", "--NDNS", "64"]], ids=lambda a: " ".join(a[:1] + a[-2:]))
+    ["diffusion-error"], ["diffusion-simple"], ["diffusion-stencil3"], ["advection-simple"],
+    BARE + ["--test", "--bf16"], ["cmaes-burger", "--test"]],
+    ids=lambda a: " ".join(a[:1] + a[-2:]))
 def test_unported_presets_and_flags_raise(argv, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -181,8 +181,30 @@ def test_make_workload_ks_matches_jax(extra):
                                rtol=1e-6)
 
 
+@pytest.mark.parametrize("flag", [["--mesh"], ["--learner", "apg"], ["--save-episodes"]],
+                         ids=lambda f: f[-1])
+def test_training_only_flags_are_ignored_by_the_test_stage_as_in_jax(flag, tmp_path,
+                                                                     monkeypatch, capsys):
+    """The JAX CLI skips its mesh and apg branches under --test, and its test
+    stage never reads --save-episodes' directory (marlpde_tpu/run.py:388-390,
+    458,498): the port's summary equals the JAX one.  --bf16 stays refused."""
+    jdir, tdir = tmp_path / "j", tmp_path / "t"
+    jdir.mkdir()
+    tdir.mkdir()
+    res = _checkpoints(BURGER, jdir, tdir, monkeypatch)
+    got, want = _both(BURGER + ["--test", "--testepisodes", "2"] + flag, jdir, tdir,
+                      monkeypatch, capsys)
+    assert got["nus"] == [] and len(got["test_returns"]) == 2
+    _assert_close(got, want)
+    assert _files(tdir / res) == _files(jdir / res)
+    with pytest.raises(NotImplementedError, match="--bf16"):
+        trun.main(BURGER + ["--test", "--bf16"] + flag, device="cpu")
+    with pytest.raises(NotImplementedError, match=flag[0]):
+        trun.main(BURGER + flag, device="cpu")
+
+
 @pytest.mark.parametrize("argv", [["diffusion-simple", "--test"], ["laplace", "--test"],
-                                  ["burger-fd", "--test"]], ids=lambda a: a[0])
+                                  ["advection-simple", "--test"]], ids=lambda a: a[0])
 def test_test_stage_of_unported_workloads_raises(argv, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match="--test"):

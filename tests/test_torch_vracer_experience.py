@@ -33,34 +33,36 @@ T, NA = 5, 2
 IDS = np.array([9, 9, 11, 8, 18, 17, 12, 23])
 
 
-def _batch(seed, B=3):
+def _batch(seed, B=3, obs_dim=3, act_dim=1, sigma_scale=0.2):
     rng = np.random.default_rng(seed)
     mask = np.ones((B, T))
     mask[1, 2:] = 0.0                               # episode 1 blows up after 2 steps
     rewards = rng.standard_normal((B, T, NA)) * 0.05
     rewards[1, 1] = -np.inf
     rewards[1, 2:] = 0.0
-    mu = rng.standard_normal((B, T, NA, 1)) * 0.3
-    sigma = np.exp(rng.standard_normal((B, T, NA, 1)) * 0.3) * 0.2
+    mu = rng.standard_normal((B, T, NA, act_dim)) * 0.3
+    sigma = np.exp(rng.standard_normal((B, T, NA, act_dim)) * 0.3) * sigma_scale
     actions = np.clip(mu + 2 * sigma * rng.standard_normal(mu.shape), -5, 5)
-    final_obs = rng.standard_normal((B, NA, 3))
+    final_obs = rng.standard_normal((B, NA, obs_dim))
     final_obs[1, 0, 0] = np.nan
-    return dict(obs=rng.standard_normal((B, T, NA, 3)) * 1.5, actions=actions, mu=mu,
+    return dict(obs=rng.standard_normal((B, T, NA, obs_dim)) * 1.5, actions=actions, mu=mu,
                 sigma=sigma, rewards=rewards, mask=mask, final_obs=final_obs,
                 truncated=np.array([False, True, False]))
 
 
-def _states(**cfg_kw):
-    cfg = jv.VracerConfig(obs_dim=3, act_dim=1, num_agents=NA, episode_length=T, width=8,
-                          mini_batch_size=len(IDS), replay_max_experiences=16,
+def _states(obs_dim=3, act_dim=1, width=8, **cfg_kw):
+    cfg = jv.VracerConfig(obs_dim=obs_dim, act_dim=act_dim, num_agents=NA, episode_length=T,
+                          width=width, mini_batch_size=len(IDS), replay_max_experiences=16,
                           replay_episode_capacity=4, **cfg_kw)
     jts = params64(cfg, jv.init_train(cfg, jax.random.key(2), dtype=jnp.float64))
     rng = np.random.default_rng(9)
+    mean, m2 = ([0.3, 0.5, -0.2], [40.0, 80.0, 30.0]) if obs_dim == 3 else (
+        np.linspace(-0.3, 0.5, obs_dim), np.linspace(30.0, 80.0, obs_dim))
     jts = jts.replace(
         params=jax.tree.map(lambda a: a + jnp.asarray(rng.standard_normal(a.shape) * 0.3),
                             jts.params),
-        obs_stats=jrs.RunningStats(mean=jnp.asarray([0.3, 0.5, -0.2]),
-                                   m2=jnp.asarray([40.0, 80.0, 30.0]), count=jnp.asarray(20.0)),
+        obs_stats=jrs.RunningStats(mean=jnp.asarray(mean), m2=jnp.asarray(m2),
+                                   count=jnp.asarray(20.0)),
         rew_stats=jrs.RunningStats(mean=jnp.asarray(0.01), m2=jnp.asarray(0.4),
                                    count=jnp.asarray(2000.0)))
     tcfg = tv.VracerConfig(**dataclasses.asdict(cfg))
@@ -81,10 +83,11 @@ def _assert_replay(trep, jrep):
 def _insert_both(cfg, jts, tcfg, ts):
     """Two generations (observe, then insert, the trainer's experience-mode
     order) into a ring of 16: the second evicts the first's oldest steps."""
-    jrep = jflat.init_flat(16, 4, NA, 3, 1, dtype=jnp.float64)
+    jrep = jflat.init_flat(16, 4, NA, cfg.obs_dim, cfg.act_dim, dtype=jnp.float64)
     trep = flat_from_jax(jrep)
     for seed in (0, 1):
-        b = _batch(seed)
+        b = _batch(seed, obs_dim=cfg.obs_dim, act_dim=cfg.act_dim,
+                   sigma_scale=0.2 if cfg.act_dim == 1 else cfg.init_noise)
         jb = {k: jnp.asarray(v) for k, v in b.items()}
         tb = {k: torch.from_numpy(v) for k, v in b.items()}
         jts = jv.observe_episodes(cfg, jts, jb)
@@ -104,6 +107,10 @@ CASES = [
     dict(multi_agent_relationship="cooperation", cutoff_dim_norm=True,
          multi_agent_correlation=True, gamma=0.95),
     dict(reward_rescaling=False, state_rescaling=False),
+    # the burger-fd learner (run-vracer-burger-fd.py): obs 256, 256 actions,
+    # width 32, iex 0.005; its importance weights are products over 256
+    # dimensions, so every sample is far-policy and the KL term dominates
+    dict(obs_dim=256, act_dim=256, width=32, init_noise=0.005, sigma_max=0.05),
 ]
 
 
@@ -112,6 +119,7 @@ def test_flat_insert_then_one_update(case, monkeypatch):
     case = dict(case)
     n_updates = case.pop("n_updates", 0)
     cfg, jts, tcfg, ts = _states(**case)
+    wide = cfg.act_dim > 1
     jts, jrep, ts, trep = _insert_both(cfg, jts, tcfg, ts)
     jts = jts.replace(n_updates=jnp.asarray(n_updates, jnp.int32))
     ts = train_state_from_jax(tcfg, jts)
@@ -163,6 +171,8 @@ def test_flat_insert_then_one_update(case, monkeypatch):
     # the sample made some of the stored flags off-policy, or none: either way
     # the replay-wide fraction is the JAX one
     assert tm["frac_off_replay"].item() == float(jm["frac_off_replay"])
+    if wide:
+        assert tm["frac_far"].item() == float(jm["frac_far"]) == 1.0
 
 
 @pytest.mark.parametrize("frac_off,rises", [(0.0, True), (1.0, False)])
