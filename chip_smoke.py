@@ -48,14 +48,33 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 14. [variants] one short CLI run on the card of coupled-burger, burger-jax,
    burger (MSE reward), burger --forcing, burger --ssm and burger --dsm --ic
    forced (coupled-burger and burger also --test), and burger-lockstep
-   through registry.make_env and trainer.train, each at a reduced depth.
+   through registry.make_env and trainer.train, each at a reduced depth;
+15. [simple] diffusion-simple, diffusion-error, diffusion-stencil3,
+   advection-simple and laplace through the CLI at their run scripts' widths
+   (SIMPLE_RUNS' cuts of --NE, --rstart, --maxupd), with korali's ledger
+   over the live steps and each episode held to the early-stop rule, then
+   --test of each (its figures' data and error_rl_{N}.json);
+   [simple-breakdown] a diffusion-simple and a laplace generation's
+   collection, insert and updates timed apart; [bf16] the
+   error of a 256x256 matmul with and without --bf16's precision, and one
+   short diffusion-simple --bf16 run;
+16. [simple-oracle] diffusion-simple's defaults with constant actions -2 and
+   0 against results/diffusion_oracle_r5.json; [simple-agree] deterministic
+   diffusion-simple and laplace collections on the card against the CPU
+   (open loop for five seeds, closed loop, and the witnesses that their
+   differences are float32 rounding); [simple-learns] the config of
+   tests/test_rl.py's diffusion learning test.
+
+The [kernels] phase also holds the MLP kernel at the [simple] shapes of all
+five presets and at obs 128/256 with widths 128/256 (WIDE_INPUTS).
 
 Launch counts are set to 0 just before each path and read just after; the
 comparisons of a kernel with its plain version are not counted.  The
 flagship Burgers paths (main, cli, cli_w256, cli_test) must launch both
-kernels; every other path (ks, ks_test, fd, fd_test, variants) the MLP kernel
-and never the ABCN kernel: their configs run the general per-env env on
-torch.fft, as in the JAX package.  Standard output ends
+kernels; every other path (ks, ks_test, fd, fd_test, variants, simple,
+simple_test, bf16) the MLP kernel and never the ABCN kernel: their configs
+run the general per-env env on torch.fft or have no Burgers solver, as in
+the JAX package.  Standard output ends
 with one JSON line of kernel results (launches of the [cli] path, and of each
 path under "launches_by_path"), then the contract line {"ok": true,
 "device": {...}}.  Without a CUDA card, or without the package beside it, the
@@ -123,6 +142,51 @@ VARIANTS = ("coupled-burger", "burger-jax --dforce", "burger --dforce",
             "burger --dforce --dsm --ic forced", "burger")
 # the policy heads of the [variants] runs: (actions, sigma_max, iex)
 VARIANT_HEADS = {"coupled": (1, 1.0, 0.1), "burger": (32, 1.0, 0.1), "jax": (32, 0.1, 0.01)}
+# [simple]: each preset at its run script's widths and the CLI's 16 episodes a
+# generation (an untrained policy's live steps a generation, on the CPU:
+# 147, 8000, 17, 48 and 1600), cut in --NE, --rstart (below the scripts'
+# 32768 / 16384 / 262144, so that updates run) and --maxupd
+SIMPLE_RUNS = {
+    "diffusion-simple": "--NE 900 --rstart 300 --maxupd 200 --testfreq 2",
+    "diffusion-error": "--NE 16000 --rstart 4000 --maxupd 200",
+    "diffusion-stencil3": "--NE 300 --rstart 100 --maxupd 200",
+    "advection-simple": "--NE 480 --rstart 150 --maxupd 200",
+    "laplace": "--NE 4800 --rstart 1600 --maxupd 200",
+}
+# the MLP shapes of the [simple] paths: (obs, actions, width, mu_param,
+# sigma_max, iex) of the run scripts (diffusion-simple, -error, -stencil3,
+# advection-simple, laplace), at the acting rows (16 envs x agents) and the
+# insert rows (16 x episode length x agents)
+SIMPLE_HEADS = {"diffusion": ((128, 128, 128, "sigma_relative", 5.0, 3.0), (16, 8000)),
+                "error": ((128, 128, 128, "sigma_relative", 0.1, 0.01), (16, 8000)),
+                "stencil3": ((128, 2, 128, "sigma_relative", 5.0, 3.0), (16, 8000)),
+                "advection": ((32, 64, 128, "absolute", 0.5, 0.05), (16, 8000)),
+                "laplace": ((4, 3, 128, "absolute", 1.0, 0.1), (512, 51200))}
+# obs widths the kernel refused while it staged W1 and the x tile in shared
+# memory: burger-fd and ks at width 256 (obs 256 and 128), diffusion-simple
+# at N=256
+WIDE_INPUTS = {"d256w128": ((256, 256, 128, "absolute", 0.5, 0.005), (10, 5000)),
+               "d256w256": ((256, 256, 256, "absolute", 0.5, 0.005), (10, 5000)),
+               "d128w256": ((128, 128, 256, "sigma_relative", 5.0, 0.01), (16, 8000))}
+# results/diffusion_oracle_r5.json (the JAX package, float32 on the CPU):
+# diffusion-simple's defaults, 64 episodes of constant actions
+ORACLE = {-2.0: (0.2499985545873642, 500.0), 0.0: (-0.0008172778179869056, 56.0)}
+ORACLE_TOL = 1e-6    # absolute on the mean return: float32 sums of 500 rewards of ~5e-4
+# relative to each tensor's max |value|.  Open loop (the card's env on the
+# CPU's actions, its policy on the CPU's observations): the policy's outputs
+# (the MLP kernel against the module, ~1.5e-6 on an H100) at SIMPLE_AGREE_TOL;
+# the env's at SIMPLE_ENV_TOL: diffusion's explicit stencils, stepping with a
+# policy's 128 weights, amplify float32 rounding (rewards 1.2e-5 to 4.2e-4
+# over the five seeds on an H100, of the order of the CPU's own float32
+# against float64 on the same actions: 4.4e-5, obs 8.5e-5): the limit sits
+# 2.4x above the largest reading.  Closed loop the policy acts on the
+# amplified field, at SIMPLE_CLOSED_TOL (1.0e-4 to 1.16e-4 on an H100).  In
+# float64 on both devices the same program's rounding stays near 1e-13
+SIMPLE_AGREE_TOL = 1e-4
+SIMPLE_ENV_TOL = 1e-3
+SIMPLE_CLOSED_TOL = 1e-3
+SIMPLE_AGREE_SEEDS = (2, 3, 5, 7, 11)   # of the weights' perturbation, open loop
+SIMPLE_F64_TOL = 1e-8
 
 
 def check(cond, msg):
@@ -270,7 +334,10 @@ def phase_kernels(env, dev):
               # insert rows (16 x 50) of coupled-burger (1 action), the burger
               # runs (32 actions) and burger-jax (32 actions, sigma_max 0.1, iex 0.01)
               + [(R, 32, A, 256, "absolute", sigma_max, iex) for R in (16, 800)
-                 for A, sigma_max, iex in VARIANT_HEADS.values()])
+                 for A, sigma_max, iex in VARIANT_HEADS.values()]
+              # [simple] and the wide-input shapes
+              + [(R, *head) for head, rows in list(SIMPLE_HEADS.values())
+                 + list(WIDE_INPUTS.values()) for R in rows])
     mlp_rows = []
     for R, D, A, width, mu_param, sigma_max, iex in shapes:
         x = torch.randn(R, D, generator=g, device=dev)
@@ -297,16 +364,21 @@ def phase_kernels(env, dev):
         check(err <= MLP_TOL, f"mlp kernel disagrees with VracerNet (R={R}, obs={D}, "
                               f"W={width}, {mu_param}): {err:.3e}")
         mlp_rows.append(dict(R=R, D=D, A=A, iex=iex, width=width, mu_param=mu_param, err=err,
-                             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by))
+                             sigma_max=sigma_max, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by))
     for width in (128, 256):
         w2 = torch.randn(width, width, generator=g, device=dev)
         print(f"[kernels] w2_image W={width} (the 3xTF32 split of W2, once per parameter "
               f"version; torch ops): {median_ms(lambda: mlp.w2_image(w2)):.4f} ms")
     flag = {(r["width"], r["mu_param"]): r for r in mlp_rows if r["R"] == NUM_ENVS * 32}
-    ks = {r["R"]: r for r in mlp_rows if r["D"] == 32}
-    fd = {r["R"]: r for r in mlp_rows if r["D"] == 256}
-    var = {(r["R"], r["A"], r["iex"]): r for r in mlp_rows if r["D"] == 32 and r["R"] in (16, 800)
-           and r["mu_param"] == "absolute"}
+    by_shape = {(r["R"], r["D"], r["A"], r["width"], r["mu_param"], r["sigma_max"], r["iex"]): r
+                for r in mlp_rows}
+    ks = {R: by_shape[R, 32, 16, 256, "sigma_relative", 5.0, 0.01] for R in (16, 8000)}
+    fd = {R: by_shape[R, 256, 256, 32, "absolute", 0.05, 0.005] for R in (10, 5000)}
+    var = {(R, A, iex): by_shape[R, 32, A, 256, "absolute", sigma_max, iex]
+           for R in (16, 800) for A, sigma_max, iex in VARIANT_HEADS.values()}
+    new_shapes = {f"{tag}_r{R}": by_shape[(R, *head)] for tag, (head, rows) in
+                  list(SIMPLE_HEADS.items()) + list(WIDE_INPUTS.items()) for R in rows}
     results.append(dict(name="mlp_forward", route="cuda",
                         source="marlpde_tpu_torch/csrc/mlp.cu",
                         replaces="marlpde_tpu/ops/mlp_pallas.py:71",
@@ -324,6 +396,8 @@ def phase_kernels(env, dev):
                            for key in ("ms", "plain_ms", "bound_ms")},
                         **{f"{key}_{tag}_r{R}": var[R, A, iex][key]
                            for tag, (A, _, iex) in VARIANT_HEADS.items() for R in (16, 800)
+                           for key in ("ms", "plain_ms", "bound_ms")},
+                        **{f"{key}_{tag}": row[key] for tag, row in new_shapes.items()
                            for key in ("ms", "plain_ms", "bound_ms")}))
     return results
 
@@ -444,10 +518,11 @@ def phase_small_agreement(dev):
     check(worst <= 1e-4, f"card and CPU collections disagree: {worst:.3e}")
 
 
-def _cli(argv, tag):
+def _cli(argv, tag, also=None):
     """``marlpde_tpu_torch.run.main(argv)`` with its standard output captured:
     returns (ts, rep, history, per-generation rows, captured lines).  Each
-    row holds the generation's seconds and kernel launches."""
+    row holds the generation's seconds and kernel launches.  ``also(gen, ts,
+    rep, hist)`` runs after each generation."""
     import torch
     from marlpde_tpu_torch import run
     from marlpde_tpu_torch.kernels import abcn, mlp
@@ -458,6 +533,8 @@ def _cli(argv, tag):
         torch.cuda.synchronize()
         rows.append(dict(gen=gen, wall=hist["wall_time"][-1], abcn=abcn.launches,
                          mlp=mlp.launches))
+        if also is not None:
+            also(gen, ts, rep, hist)
 
     buf = io.StringIO()
     abcn.launches = 0
@@ -881,20 +958,28 @@ def phase_fd(workdir):
 
 
 def _agree(tag, trajs, dev, tol, what, names=("obs", "actions", "mu", "sigma", "rewards",
-                                               "mask", "final_obs")):
+                                               "mask", "final_obs"),
+           why="float32 cuFFT and the MLP kernel against pocketfft and the module"):
     """The worst error of the card's collection against the CPU's, relative
     to each tensor's max |value|; fails above ``tol``."""
+    worst = _rel_err(tag, trajs[dev], trajs["cpu"], names)
+    print(f"[{tag}] {what}: max err relative to each tensor's max |value| {json.dumps(worst)} "
+          f"(tolerance {tol:g}: {why})")
+    check(max(worst.values()) <= tol, f"[{tag}] card and CPU collections disagree: {worst}")
+
+
+def _rel_err(tag, traj, ref, names):
+    """{name: max |traj - ref| / max |ref|} over the tensors ``names`` of two
+    collections; fails on a shape mismatch, a non-finite value or actions
+    that are all ~0."""
     import torch
     worst = {}
     for name in names:
-        a, b = trajs[dev][name].cpu(), trajs["cpu"][name]
+        a, b = traj[name].cpu(), ref[name].cpu()
         check(a.shape == b.shape and torch.isfinite(a).all(), f"{tag} {name}")
         worst[name] = ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
-    check(trajs["cpu"]["actions"].abs().max() > 1e-3, f"{tag}: the actions are all ~0")
-    print(f"[{tag}] {what}: max err relative to each tensor's max |value| {json.dumps(worst)} "
-          f"(tolerance {tol:g}: float32 cuFFT and the MLP kernel against pocketfft and the "
-          f"module)")
-    check(max(worst.values()) <= tol, f"[{tag}] card and CPU collections disagree: {worst}")
+    check(ref["actions"].abs().max() > 1e-3, f"{tag}: the actions are all ~0")
+    return worst
 
 
 def phase_fd_agree(dev):
@@ -928,25 +1013,38 @@ def phase_fd_agree(dev):
     cpu, _ = rollout.collect_episodes(envs["cpu"], rl_cfg, ts["cpu"], None, 16,
                                       deterministic=True)
     env = envs[dev]
-    state, obs = env.reset_batch(env.consts, None, torch.arange(16, device=dev))
+    _agree("fd-agree", {"cpu": cpu, dev: _open_loop(env, rl_cfg, ts[dev], cpu, dev)}, dev,
+           FD_AGREE_TOL, "B=16, 20 macro-steps x 10 FD sub-steps, N_dns 1024, grid 256, 256 "
+           "actions, the card's env on the CPU's actions and its policy on the CPU's "
+           "observations", names=("obs", "mu", "sigma", "rewards", "mask", "final_obs"))
+    closed, _ = rollout.collect_episodes(env, rl_cfg, ts[dev], None, 16, deterministic=True)
+    _agree("fd-agree", {"cpu": cpu, dev: closed}, dev, FD_CLOSED_TOL,
+           "the same, closed loop: the card's collection against the CPU's")
+
+
+def _open_loop(env, rl_cfg, ts, cpu, dev):
+    """The CPU collection ``cpu`` replayed on the card: the card's env steps
+    on the CPU's actions and the card's policy acts on the CPU's
+    observations; returns the card's obs, mu, sigma, rewards, mask and
+    final_obs in the layout of ``collect_episodes``."""
+    import torch
+    from marlpde_tpu_torch.rl import vracer
+
+    B = cpu["obs"].shape[0]
+    state, obs = env.reset_batch(env.consts, None, torch.arange(B, device=dev))
     card = dict(obs=[], mu=[], sigma=[], rewards=[], mask=[])
     for t in range(env.episode_length):
-        _, mu, sigma = vracer.policy_apply(rl_cfg, ts[dev], cpu["obs"][:, t].to(dev))
+        _, mu, sigma = vracer.policy_apply(rl_cfg, ts, cpu["obs"][:, t].to(dev, obs.dtype))
         card["obs"].append(obs)
         card["mu"].append(mu)
         card["sigma"].append(sigma)
         card["mask"].append((~state.done).to(obs.dtype))
-        state, obs, rew, _, _ = env.step(env.consts, state, cpu["actions"][:, t].to(dev))
+        state, obs, rew, _, _ = env.step(env.consts, state,
+                                         cpu["actions"][:, t].to(dev, obs.dtype))
         card["rewards"].append(rew)
     card = {k: torch.stack(v, dim=1) for k, v in card.items()}
     card["final_obs"] = obs
-    _agree("fd-agree", {"cpu": cpu, dev: card}, dev, FD_AGREE_TOL,
-           "B=16, 20 macro-steps x 10 FD sub-steps, N_dns 1024, grid 256, 256 actions, the "
-           "card's env on the CPU's actions and its policy on the CPU's observations",
-           names=("obs", "mu", "sigma", "rewards", "mask", "final_obs"))
-    closed, _ = rollout.collect_episodes(env, rl_cfg, ts[dev], None, 16, deterministic=True)
-    _agree("fd-agree", {"cpu": cpu, dev: closed}, dev, FD_CLOSED_TOL,
-           "the same, closed loop: the card's collection against the CPU's")
+    return card
 
 
 def phase_variants():
@@ -1027,6 +1125,320 @@ def phase_variants():
           f"{', '.join(f'{r:.6g}' for r in hist['mean_return'])}; launches {launches}; "
           f"updates {hist['updates']}, replay rows {rep.cursor}")
     return total
+
+
+def _record_episodes(records):
+    """Patch ``trainer.collect_episodes`` to append (env name, episode length,
+    live steps (B,), each episode's mean return (B,), blown flags (B,)) of
+    every collection; returns a function that restores it."""
+    from marlpde_tpu_torch.train import trainer
+    collect = trainer.collect_episodes
+
+    def recorded(env, *args, **kw):
+        traj, final = collect(env, *args, **kw)
+        B = traj["mask"].shape[0]
+        records.append((env.name, env.episode_length, traj["mask"].sum(1).cpu(),
+                        final.cum_reward.reshape(B, -1).mean(-1).cpu(), traj["truncated"].cpu()))
+        return traj, final
+
+    trainer.collect_episodes = recorded
+    return lambda: setattr(trainer, "collect_episodes", collect)
+
+
+def _check_early_stop(tag, records):
+    """Every episode is whole, or blew up, or (diffusion, advection) stopped
+    at a negative cumulative reward, the reference's early stop."""
+    import torch
+    for name, T, lens, ret, blown in records:
+        ok = (lens == T) | blown
+        if name != "laplace":
+            ok |= (lens < T) & (ret < 0)
+        check(bool(ok.all()) and bool((lens >= 1).all()),
+              f"{tag}: episodes that break the early-stop rule: lengths {lens.tolist()}, "
+              f"returns {ret.tolist()}, blown {blown.tolist()}")
+        check(bool(torch.isfinite(ret[~blown]).all()), f"{tag}: returns {ret.tolist()}")
+
+
+def phase_simple(workdir):
+    """The diffusion, advection and Laplace presets through the CLI at their
+    run scripts' widths (SIMPLE_RUNS' cuts), then --test of each.  Returns
+    the launches of the training runs and of the test stages."""
+    import glob
+
+    train_l, test_l = dict(abcn_macro_step=0, mlp_forward=0), dict(abcn_macro_step=0,
+                                                                   mlp_forward=0)
+    for i, (name, cut) in enumerate(SIMPLE_RUNS.items()):
+        argv = [name] + cut.split() + ["--run", str(70 + i)]
+        tag = "simple " + name
+        records = []
+        restore = _record_episodes(records)
+        t0 = time.perf_counter()
+        try:
+            ts, rep, hist, rows, launches = _cli(argv, tag)
+        finally:
+            restore()
+        seconds = time.perf_counter() - t0
+        _check_early_stop(tag, records)
+        check(_finite(hist["mean_return"]) and len(hist["gen"]) >= 2,
+              f"{tag}: generations {hist['gen']}, returns {hist['mean_return']}")
+        # korali's ledger over the live steps (rstart, expperu 1, the cap)
+        rstart = int(cut.split("--rstart ")[1].split()[0])
+        cap = int(cut.split("--maxupd ")[1].split()[0])
+        done = 0
+        for total, n in zip(hist["experiences"], hist["updates"]):
+            want = min(cap, max(0, int(total - rstart) - done)) if total >= rstart else 0
+            check(n == want, f"{tag}: {n} updates at {total} live steps, korali's ledger {want}")
+            done += n
+        check(done > 0 and ts.n_updates == done, f"{tag}: updates {hist['updates']}")
+        check(launches["mlp_forward"] > 0 and launches["abcn_macro_step"] == 0,
+              f"{tag}: launches {launches}")
+        _check_state_on_card(tag, ts, rep)
+        lens = [r[2].float().mean().item() for r in records]
+        print(f"[{tag}] {seconds:.3f} s for {len(hist['gen'])} generations (obs {ts.net.obs_dim},"
+              f" {ts.net.act_dim} actions, width {ts.net.width}); generations "
+              f"{', '.join(f'{r['s']:.3f}' for r in rows)} s; returns "
+              f"{', '.join(f'{r:.6g}' for r in hist['mean_return'])}; mean episode lengths "
+              f"{', '.join(f'{x:.2f}' for x in lens)}; updates {hist['updates']}; "
+              f"test returns {hist['test_return']}; launches {launches}")
+        for k in train_l:
+            train_l[k] += launches[k]
+        if name in ("diffusion-simple", "laplace"):
+            T = records[0][1]
+            phase_cli_breakdown(f"simple-breakdown {name}", argv, ts, rep,
+                                f"16 envs x {T} macro-steps", 200, [r["s"] for r in rows])
+
+        summary, line, test_s, launches_t = _main_json(argv + ["--test"], tag + " --test")
+        check(list(summary) == ["workload", "test_mean_return", "test_returns"]
+              and len(summary["test_returns"]) == 8 and _finite(summary["test_returns"]),
+              f"{tag} --test: {summary}")
+        check(launches_t["mlp_forward"] > 0 and launches_t["abcn_macro_step"] == 0,
+              f"{tag} --test: launches {launches_t}")
+        res = os.path.join(workdir, f"_result_{name}_{70 + i}")
+        files = set(os.listdir(res))
+        want = ({"evolution", "actions", "hessian", "actiondist", "field"} if name == "laplace"
+                else {"evolution", "actionfield", "actiondist", "field"})
+        check(all(f"{w}.png" in files or f"{w}.npz" in files for w in want),
+              f"{tag} --test: files {sorted(files)}")
+        extra = ""
+        if name != "laplace":
+            check("compare.png" in files or "compare_panels.npz" in files,
+                  f"{tag} --test: no makePlot comparison in {sorted(files)}")
+            curve_files = glob.glob(os.path.join(res, "error_rl_*.json"))
+            check(len(curve_files) == 1, f"{tag} --test: error curves {curve_files}")
+            with open(curve_files[0]) as f:
+                curves = json.load(f)
+            T = records[0][1]
+            check(curves["survived_steps"] == len(curves["mse"]) >= 1
+                  and curves["episode_length"] == T and _finite(curves["mse"]),
+                  f"{tag} --test: {curve_files[0]} {curves['survived_steps']}")
+            extra = (f"; {os.path.basename(curve_files[0])}: survived "
+                     f"{curves['survived_steps']} of {T}, final mse {curves['mse'][-1]:.6g}")
+        for k in test_l:
+            test_l[k] += launches_t[k]
+        print(f"[{tag} --test] {test_s:.3f} s; test_mean_return "
+              f"{summary['test_mean_return']:.6g}{extra}; launches {launches_t}")
+    return train_l, test_l
+
+
+def phase_simple_oracle(dev):
+    """diffusion-simple's defaults on the card with constant actions, 64
+    episodes (results/diffusion_oracle_r5.json): -2 everywhere (the exact
+    explicit stencil) and 0 (an untrained sigma-relative policy's mean)."""
+    import torch
+    from marlpde_tpu_torch.envs import registry
+
+    env = registry.make_env("diffusion-simple", device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    for value, (want_ret, want_len) in ORACLE.items():
+        t0 = time.perf_counter()
+        state, _ = env.reset(env.consts, g, torch.arange(64, device=dev))
+        a = torch.full((64, env.num_agents, env.act_dim), value, device=dev)
+        live = torch.zeros(64, device=dev)
+        for _ in range(env.episode_length):
+            live += (~state.done).float()
+            state, _, _, _, _ = env.step(env.consts, state, a)
+        torch.cuda.synchronize()
+        ret, eplen = state.cum_reward.mean().item(), live.mean().item()
+        print(f"[simple-oracle] action {value:g}: mean return {ret:.7g} (JAX {want_ret:.7g}, "
+              f"tolerance {ORACLE_TOL:g} absolute), episode length {eplen:g} (JAX {want_len:g}),"
+              f" every episode {live.min().item():g}-{live.max().item():g}; "
+              f"{time.perf_counter() - t0:.3f} s")
+        check(abs(ret - want_ret) <= ORACLE_TOL and eplen == want_len
+              and live.min().item() == live.max().item(),
+              f"[simple-oracle] action {value}: return {ret}, length {eplen}")
+
+
+def _simple_collection(name, kw, d, seed, dtype):
+    """A deterministic collection of the preset ``name`` on device ``d`` in
+    ``dtype``: 16 envs, 20 macro-steps, its run script's policy with the
+    float32 weights of init_train's seed 4 plus 0.05 N(0, 1) drawn from
+    ``seed`` on the CPU (a non-zero mean head: the actions are not 0), so
+    that every device and dtype starts from the same weights.  Returns (env,
+    rl_cfg, ts, traj)."""
+    import torch
+    from marlpde_tpu_torch import run
+    from marlpde_tpu_torch.envs import registry, rollout
+    from marlpde_tpu_torch.rl import vracer
+
+    _, rl_cfg, _ = run.make_workload(run.build_parser().parse_args([name]), device="cpu")
+    env = registry.make_env(name, device=d, dtype=dtype, episode_length=20, **kw)
+    net = vracer.init_train(rl_cfg, torch.Generator().manual_seed(4)).net
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.add_(torch.randn(p.shape, generator=g) * 0.05)
+    ts = vracer.init_train(rl_cfg, torch.Generator(device=d).manual_seed(4), dtype=dtype,
+                           device=d)
+    ts.net.load_state_dict(net.state_dict())
+    return env, rl_cfg, ts, rollout.collect_episodes(env, rl_cfg, ts, None, 16,
+                                                     deterministic=True)[0]
+
+
+@contextlib.contextmanager
+def _module_policy():
+    """Act through ``VracerNet`` itself in place of the MLP kernel (a witness
+    of the card-against-CPU comparison, not a path of the port)."""
+    from marlpde_tpu_torch.kernels import mlp
+    kernel = mlp.mlp_forward
+    mlp.mlp_forward = lambda obs, net: net(obs)
+    try:
+        yield
+    finally:
+        mlp.mlp_forward = kernel
+
+
+def phase_simple_agree(dev):
+    """Deterministic collections of diffusion-simple (no offset noise) and
+    laplace at their widths, 16 envs and 20 macro-steps, on the CPU (the
+    module), for each seed of SIMPLE_AGREE_SEEDS; then the same episodes on
+    the card, which take the CPU's actions, and the card's policy (the MLP
+    kernel) on the CPU's observations, with the same weights (open loop):
+    its outputs at SIMPLE_AGREE_TOL, the env's at SIMPLE_ENV_TOL.  Then the
+    card's own closed-loop collection against the CPU's at SIMPLE_CLOSED_TOL:
+    there the explicit stencils step with the policy's actions.  Witnesses
+    that the env's errors are float32 rounding, amplified by the stencils:
+    the CPU's own float32 collection against its actions replayed in
+    float64; the card's closed loop with the module in place of the kernel
+    (at SIMPLE_CLOSED_TOL); and both closed loops in float64 (the module on
+    the card: the kernel takes float32 only) at SIMPLE_F64_TOL.  Every
+    reading is printed before any is checked."""
+    import torch
+
+    policy, env_out = ("mu", "sigma"), ("obs", "rewards", "mask", "final_obs")
+    every = policy + env_out + ("actions",)
+    for name, kw in (("diffusion-simple", dict(noise=0.0)), ("laplace", {})):
+        tag = "simple-agree " + name
+        rows = {}
+        for seed in SIMPLE_AGREE_SEEDS:
+            cpu = _simple_collection(name, kw, "cpu", seed, torch.float32)[3]
+            env, rl_cfg, ts, closed = _simple_collection(name, kw, dev, seed, torch.float32)
+            rows[f"open loop, seed {seed}"] = _rel_err(
+                tag, _open_loop(env, rl_cfg, ts, cpu, dev), cpu, policy + env_out)
+            if seed == SIMPLE_AGREE_SEEDS[0]:
+                first = cpu
+                rows[f"closed loop, seed {seed}"] = _rel_err(tag, closed, cpu, every)
+        seed = SIMPLE_AGREE_SEEDS[0]
+        env64, rl64, ts64, cpu64 = _simple_collection(name, kw, "cpu", seed, torch.float64)
+        rows[f"witness, seed {seed}: the CPU's float32 collection's actions replayed in "
+             f"float64 on the CPU, against it"] = _rel_err(
+            tag, _open_loop(env64, rl64, ts64, first, "cpu"), first, policy + env_out)
+        with _module_policy():
+            module = _simple_collection(name, kw, dev, seed, torch.float32)[3]
+            card64 = _simple_collection(name, kw, dev, seed, torch.float64)[3]
+        rows[f"witness, closed loop, seed {seed}: the card acting through the module "
+             f"in place of the kernel"] = _rel_err(tag, module, first, every)
+        rows[f"witness, closed loop, seed {seed}: float64 on both (the module on the "
+             f"card)"] = _rel_err(tag, card64, cpu64, every)
+        print(f"[{tag}] B=16, 20 macro-steps, obs {env.obs_dim}, {env.act_dim} actions, "
+              f"{env.num_agents} agents; max err relative to each tensor's max |value|, the "
+              f"card against the CPU (open loop: the card's env on the CPU's actions and its "
+              f"policy on the CPU's observations)")
+        for label, errs in rows.items():
+            print(f"[{tag}] {label}: {json.dumps(errs)}")
+        print(f"[{tag}] tolerances: open loop {SIMPLE_AGREE_TOL:g} on the policy's outputs "
+              f"(the MLP kernel against the module) and {SIMPLE_ENV_TOL:g} on the env's "
+              f"(float32 stencils, amplified); closed loop and the module witness "
+              f"{SIMPLE_CLOSED_TOL:g}; float64 {SIMPLE_F64_TOL:g}")
+        for label, errs in rows.items():
+            if label.startswith("open loop"):
+                check(max(errs[k] for k in policy) <= SIMPLE_AGREE_TOL
+                      and max(errs[k] for k in env_out) <= SIMPLE_ENV_TOL,
+                      f"[{tag}] {label}: card and CPU disagree: {errs}")
+            elif label.startswith("closed loop") or "module" in label:
+                check(max(errs.values()) <= SIMPLE_CLOSED_TOL,
+                      f"[{tag}] {label}: card and CPU disagree: {errs}")
+            elif "float64 on both" in label:
+                check(max(errs.values()) <= SIMPLE_F64_TOL,
+                      f"[{tag}] {label}: card and CPU disagree: {errs}")
+
+
+def phase_simple_learns(dev):
+    """tests/test_rl.py::TestLearning::test_diffusion_simple_policy_improves
+    on the card: VRACER (episode minibatches) on diffusion-simple at N=8 must
+    beat its first generations within 50 generations."""
+    import numpy as np
+    from marlpde_tpu_torch.envs import registry
+    from marlpde_tpu_torch.train import trainer
+
+    env = registry.make_env("diffusion-simple", N=8, episode_length=60, noise=0.0, device=dev)
+    rl_cfg = trainer.default_rl_config(env, width=32, gamma=0.95, init_noise=3.0, lr=1e-3,
+                                       replay_start_experiences=480,
+                                       replay_max_experiences=48000, mini_batch_episodes=4)
+    tc = trainer.TrainerConfig(num_envs=8, max_experiences=24000, reuse_ratio=64.0,
+                               max_updates_per_gen=40, seed=7, log_every=10)
+    t0 = time.perf_counter()
+    _, _, hist = trainer.train(env, rl_cfg, tc, verbose=False)
+    first, last = np.mean(hist["mean_return"][:5]), np.mean(hist["mean_return"][-5:])
+    len_first, len_last = np.mean(hist["mean_ep_len"][:5]), np.mean(hist["mean_ep_len"][-5:])
+    print(f"[simple-learns] {len(hist['gen'])} generations in {time.perf_counter() - t0:.3f} s:"
+          f" mean return of the first 5 {first:.6g}, of the last 5 {last:.6g}; episode length "
+          f"{len_first:.2f} -> {len_last:.2f}")
+    check(last > first, f"[simple-learns] the policy did not improve: {first} -> {last}")
+
+
+def phase_bf16():
+    """--bf16: the error of a 256x256 float32 matmul against float64 with and
+    without the flag's precision, then one short diffusion-simple --bf16 run
+    whose library matmuls run at it, and the precision restored after."""
+    import torch
+    from marlpde_tpu_torch import device as tdevice
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.randn(256, 256, generator=g, device="cuda")
+    b = torch.randn(256, 256, generator=g, device="cuda")
+    ref = a.double() @ b.double()
+    rel = lambda c: ((c.double() - ref).abs().max() / ref.abs().max()).item()
+    plain = rel(a @ b)
+    with tdevice.reduced_matmul_precision(torch.device("cuda")):
+        lowered = rel(a @ b)
+        prec = torch.get_float32_matmul_precision()
+    # float32 rounds at 2^-24, TF32 at 2^-11, bf16 at 2^-8 (relative, per product)
+    kind = "bf16" if lowered > 2e-3 else "TF32" if lowered > 2e-5 else "float32"
+    print(f"[bf16] 256x256 float32 matmul against float64 (max error over the largest |value|):"
+          f" {plain:.3e} without the flag, {lowered:.3e} with it (precision {prec!r}, "
+          f"allow_tf32 on): cuBLAS gives {kind}")
+    check(plain < 1e-5 and lowered >= plain, f"[bf16] errors {plain}, {lowered}")
+    seen = []
+
+    def probe(gen, ts, rep, hist):
+        seen.append((tdevice.reduced(), torch.backends.cuda.matmul.allow_tf32))
+
+    t0 = time.perf_counter()
+    _, _, hist, _, launches = _cli("diffusion-simple --bf16 --NE 600 --rstart 200 --maxupd 100 "
+                                   "--run 80".split(), "bf16", also=probe)
+    seconds = time.perf_counter() - t0
+    check(launches["mlp_forward"] > 0 and launches["abcn_macro_step"] == 0,
+          f"[bf16] launches {launches}")
+    check(seen and all(s == (True, True) for s in seen), f"[bf16] precision in the run {seen}")
+    check(not tdevice.reduced() and not torch.backends.cuda.matmul.allow_tf32,
+          "[bf16] the precision was not restored after the run")
+    check(_finite(hist["mean_return"]) and sum(hist["updates"]) > 0,
+          f"[bf16] returns {hist['mean_return']}, updates {hist['updates']}")
+    print(f"[bf16] diffusion-simple --bf16: {len(hist['gen'])} generations, {seconds:.3f} s, "
+          f"updates {hist['updates']}, returns "
+          f"{', '.join(f'{r:.6g}' for r in hist['mean_return'])}; launches {launches}; "
+          f"precision restored after")
+    return launches
 
 
 def ptxas_by_instantiation(log):
@@ -1119,17 +1531,25 @@ def main() -> int:
                                 "10 envs x 500 macro-steps x 10 FD sub-steps", 2500, gen_s)
             del ts, rep
             launches_variants = phase_variants()
+            launches_simple, launches_simple_test = phase_simple(workdir)
+            launches_bf16 = phase_bf16()
         finally:
             os.chdir(here)
     phase_fast_off(dev)
     phase_ks_agree(dev)
     phase_fd_agree(dev)
+    phase_simple_oracle(dev)
+    phase_simple_agree(dev)
+    phase_simple_learns(dev)
     by_path = dict(main=launches_main, cli=launches_cli, cli_w256=launches_w256,
                    cli_test=launches_cli_test, ks=launches_ks, ks_test=launches_ks_test,
-                   fd=launches_fd, fd_test=launches_fd_test, variants=launches_variants)
-    # the flagship Burgers paths run both kernels; KS has its own solver, and
-    # the other Burgers configs run the general per-env env (torch.fft): the
-    # MLP kernel only
+                   fd=launches_fd, fd_test=launches_fd_test, variants=launches_variants,
+                   simple=launches_simple, simple_test=launches_simple_test,
+                   bf16=launches_bf16)
+    # the flagship Burgers paths run both kernels; KS has its own solver, the
+    # other Burgers configs run the general per-env env (torch.fft), and the
+    # diffusion, advection and Laplace envs have no Burgers solver: the MLP
+    # kernel only
     burgers = ("main", "cli", "cli_w256", "cli_test")
     for k in kernels:
         k["launches"] = launches_cli[k["name"]]

@@ -5,14 +5,22 @@ counterpart is found under the same path.  It covers the Burgers family
 (``burger``, ``burger-marl``, ``burger-fd``, ``burger-jax``,
 ``coupled-burger`` and ``burger-lockstep``: the ABCN, FD, RK3 and compact-FD
 schemes, stochastic forcing, the ssm/dsm closures, MSE, spectral and coupled
-rewards) and ``ks``, through the CLI (``python -m marlpde_tpu_torch.run``):
-the whole-batch and the general per-env Burgers env, the KS env on its
-ETDRK4 solver, VRACER in both minibatch modes, checkpoint/resume, testing and
-diagnostics, and the --test stage (evaluation sweeps, SGS diagnostics,
-makePlot, the async .npy sink).
+rewards), ``ks``, and the diffusion, advection and Laplace families
+(``diffusion-simple``, ``diffusion-error``, ``diffusion-stencil3``,
+``advection-simple``, ``laplace``) through the CLI
+(``python -m marlpde_tpu_torch.run``): the whole-batch and the general
+per-env Burgers env, the KS env on its ETDRK4 solver, the stencil-action
+envs, VRACER in both minibatch modes, checkpoint/resume, testing and
+diagnostics, the episode dumps (--save-episodes), --bf16, the --test stage
+(evaluation sweeps, SGS diagnostics, makePlot and the other figures, the
+error_rl_{N}.json curves, the async .npy sink) and the rlview training
+curves (``python -m marlpde_tpu_torch.analysis.rlview``).
 The two TPU kernels of these paths are CUDA kernels written for ``sm_90a``
 (``csrc/``), wrapped in ``kernels/``; each wrapper runs its plain PyTorch
 version on CPU tensors and launches the kernel, or raises, on CUDA tensors.
+What remains of the CLI (``--learner apg``, ``cmaes-burger``, ``--mesh``)
+raises NotImplementedError with ``NOT_PORTED``; the ddp subproject has no
+module here yet (ROADMAP queue 1).
 
 The port imports torch and numpy (and scipy, and matplotlib where it is
 installed, for the test stage's figures), never jax, flax, optax or marlpde_tpu.

@@ -115,3 +115,10 @@ def error_curves(uu, solution, tt):
 def write_error_json(path: str, curves: dict):
     with open(path, "w") as f:
         json.dump(curves, f)
+
+
+def load_reference_error_json(path: str) -> dict:
+    """An error_*.json of the reference (diffusion_errors/) or of
+    ``write_error_json``."""
+    with open(path) as f:
+        return json.load(f)

@@ -1,5 +1,5 @@
 """Policy evaluation sweeps and the testing-mode comparisons (port of
-marlpde_tpu/analysis/evaluation.py:23-240).
+marlpde_tpu/analysis/evaluation.py:23-406).
 
 Parity targets: burger_testing_environment.py — sweep DNS pool rows with the
 deterministic policy, collect the spectral relative-error trajectories, the
@@ -7,7 +7,10 @@ learned actions and the DNS a-priori SGS terms, and dump relError_*.npy /
 sgsTerms_*.npy / dnsSgsTerms_*.npy (:168-179); the uncontrolled-baseline
 comparison + makePlot of the single-episode testing branch
 (burger_environment.py:241-329); the KS testing branch (ks_environment.py:
-122-183).
+122-183); the testing plots of the diffusion and advection families
+(diffusion_environment_simple.py:76-81, the error_rl_{N}.json convergence
+curves of plotting_diffusion.py:60-78) and of Laplace
+(plotting_laplace.py:13-90).
 
 The JAX package runs one episode per pool row.  Here every row of a sweep is
 one batch on the per-env env's leading axis (``reset_at`` on the given rows,
@@ -15,8 +18,7 @@ then ``step``), controlled and zero-action baseline rows together: the
 policy's MLP op runs on the controlled rows only, and each row's results
 equal the JAX row's.  The general per-env envs step on torch.fft, as the JAX
 functions step the general vmapped env.  The files keep the JAX names, shapes
-and keys.  ``simple_env_testing`` and ``laplace_testing`` wait for their envs
-(ROADMAP item 14).
+and keys.
 """
 
 from __future__ import annotations
@@ -26,12 +28,12 @@ import os
 import numpy as np
 import torch
 
-from marlpde_tpu_torch import NOT_PORTED as _NOT_PORTED
 from marlpde_tpu_torch.analysis import diagnostics, plotting
 from marlpde_tpu_torch.core import spectral
-from marlpde_tpu_torch.envs import burger_env, ks_env
+from marlpde_tpu_torch.envs import advection_env, burger_env, diffusion_env, ks_env
 from marlpde_tpu_torch.envs.burger_env import _draw_offset
 from marlpde_tpu_torch.rl import vracer
+from marlpde_tpu_torch.solvers import advection, diffusion
 from marlpde_tpu_torch.utils.async_sink import AsyncSink
 
 
@@ -213,12 +215,113 @@ def ks_testing(cfg: ks_env.KSEnvConfig, pool, rl_cfg, ts, out_dir: str, run_tag=
     return out if many else {k: v[0] for k, v in out.items()}
 
 
-def simple_env_testing(env, rl_cfg, ts, out_dir: str, key=None):
-    """The diffusion/advection testing plots (diffusion_environment_simple.py:
-    76-81) wait for their envs."""
-    raise NotImplementedError(f"[evaluation] simple_env_testing {_NOT_PORTED}")
+def _simple_episode(env, rl_cfg, ts, state, obs, n_ctrl: int, truth=None):
+    """One episode of every env of ``state``: rows [0, n_ctrl) act by the
+    deterministic policy, the others take zero actions.  Returns numpy (B, T,
+    ...) u, actions, reward, done (and truth, the analytical solution of each
+    state, where ``truth`` gives it) and the final state."""
+    B = obs.shape[0]
+    zero = torch.zeros(B, env.num_agents, env.act_dim, dtype=obs.dtype, device=obs.device)
+    out = dict(u=[], actions=[], reward=[], done=[], truth=[])
+    for _ in range(env.episode_length):
+        a = zero
+        if n_ctrl:
+            a = torch.cat([vracer.act_deterministic(rl_cfg, ts, obs[:n_ctrl]), zero[n_ctrl:]])
+        state, obs, rew, done, _info = env.step(env.consts, state, a)
+        out["u"].append(state.solver.u)
+        out["actions"].append(a)
+        out["reward"].append(rew)
+        out["done"].append(done)
+        if truth is not None:
+            out["truth"].append(truth(state.solver))
+    return {k: _np(torch.stack(v, dim=1)) for k, v in out.items() if v}, state
 
 
-def laplace_testing(env, rl_cfg, ts, out_dir: str, key=None):
-    """The Laplace testing plots (plotting_laplace.py:13-90) wait for its env."""
-    raise NotImplementedError(f"[evaluation] laplace_testing {_NOT_PORTED}")
+# the env module and solver of each family with an analytical solution
+_SIMPLE_FAMILIES = {"diffusion": (diffusion_env, diffusion), "advection": (advection_env, advection)}
+
+
+def simple_env_testing(env, rl_cfg, ts, out_dir: str, generator=None):
+    """Testing-mode plots for the diffusion and advection families
+    (diffusion_environment_simple.py:76-81: plotEvolution, plotActionField,
+    plotActionDistribution, plotDiffusionField).  Runs ONE deterministic
+    episode and, from the same offset (one draw of ``generator``), the
+    uncontrolled zero-action episode, as one batch of two; records the solved
+    field, the analytical solution and the expanded action fields; writes the
+    evolution/actionfield/actiondist/field figures, makePlot's comparison
+    (``compare``, spectral=False) and the error_rl_{N}.json convergence
+    curves into out_dir."""
+    cfg = env.cfg
+    family = env.name.split("-")[0]
+    if family not in _SIMPLE_FAMILIES:
+        raise ValueError(f"[evaluation] simple_env_testing: no analytical solution for "
+                         f"{env.name!r}")
+    module, solver = _SIMPLE_FAMILIES[family]
+    truth = lambda s: solver.analytical_sinus(s, cfg.solver)
+    offset = diffusion_env.draw_offset(cfg.noise, generator, 1, env.dtype, env.device)
+    state, obs = module.reset_at(cfg, offset.repeat(2))
+    traj, final = _simple_episode(env, rl_cfg, ts, state, obs, 1, truth)
+
+    os.makedirs(out_dir, exist_ok=True)
+    x = np.asarray(cfg.solver.grid.x)
+    uu, sol = traj["u"][0], traj["truth"][0]
+    T = len(uu)
+    tt = np.arange(1, T + 1) * cfg.solver.dt
+    # actions -> fields on the grid (uniform per-agent blocks)
+    a = traj["actions"][0].reshape(T, -1)
+    afield = np.repeat(a, max(1, len(x) // a.shape[1]), axis=1)[:, : len(x)]
+    plotting.plot_evolution_panels(x, tt, uu, sol, os.path.join(out_dir, "evolution.png"))
+    plotting.plot_action_contour(x, tt, afield, os.path.join(out_dir, "actionfield.png"))
+    plotting.plot_action_distribution(a, os.path.join(out_dir, "actiondist.png"))
+    plotting.plot_field_contour(x, tt, uu, os.path.join(out_dir, "field.png"))
+
+    # the older inline-plot variant's 3x6 truth/uncontrolled/controlled panel
+    # (advection_environment.py:121-223, makePlot's family): field contours,
+    # error traces, end spectra, action trajectories
+    fields = torch.as_tensor(np.stack([sol, traj["u"][1], uu]), device=env.device)
+    ek = _np(diagnostics.compute_ek(spectral.fft(fields), cfg.solver.grid.dx)["Ek_ktt"])
+    panels = [dict(x=x, tt=tt, uu=f, ek_ktt=e) for f, e in zip(_np(fields), ek)]
+    for d, r in zip(panels[1:], (1, 0)):
+        d["action_fields"] = traj["actions"][r].reshape(T, -1)
+    plotting.make_plot(*panels, os.path.join(out_dir, "compare"), spectral=False)
+
+    # the reference's learned-policy convergence artifact
+    # (plotting_diffusion.py:60-78 plotConvergence -> error_{N}.json, the only
+    # checked-in learned-RL results of the reference repo,
+    # diffusion_errors/error_{8,16,32,128}.json): mse/linf/mass curves of the
+    # deterministic policy against the analytical solution, and how long it
+    # survived the early-stop rule, counted to the first done
+    done = traj["done"][0]
+    survived = int(done.argmax()) + 1 if done.any() else T
+    curves = diagnostics.error_curves(uu[:survived], sol[:survived], tt[:survived])
+    curves["survived_steps"] = survived
+    curves["episode_length"] = int(cfg.episode_length)
+    diagnostics.write_error_json(os.path.join(out_dir, f"error_rl_{len(x)}.json"), curves)
+    return dict(cumreward=_np(final.cum_reward[0]), uu=uu, solution=sol)
+
+
+def laplace_testing(env, rl_cfg, ts, out_dir: str, generator=None):
+    """Laplace testing plots (plotting_laplace.py:13-90) of one deterministic
+    episode: evolution panels with the FD laplacian ("gradient") dashed, the 3
+    stencil-channel action contours, the gradient-field contour (hessian),
+    the per-channel action distribution and the field contour."""
+    cfg = env.cfg
+    state, obs = env.reset(env.consts, generator, torch.arange(1, device=env.device))
+    traj, final = _simple_episode(env, rl_cfg, ts, state, obs, 1)
+    os.makedirs(out_dir, exist_ok=True)
+    x = np.asarray(cfg.solver.grid.x)
+    dx = float(cfg.solver.grid.dx)
+    uu = traj["u"][0]                               # (T, N)
+    tt = np.arange(1, len(uu) + 1) * cfg.solver.dt
+    # the reference's gradientHistory: centered-FD laplacian of u
+    grad = (np.roll(uu, -1, 1) - 2 * uu + np.roll(uu, 1, 1)) / dx**2
+    a = traj["actions"][0]                          # (T, na, 3)
+    join = lambda name: os.path.join(out_dir, name)
+    plotting.plot_evolution_panels(x, tt, uu, None, join("evolution.png"), second=grad)
+    # agents act on rows 1..N-1 (plotting_laplace.py:34-56)
+    plotting.plot_action_contour(x[1:], tt, a, join("actions.png"))
+    # the gradient-field contour, "hessian.pdf" (plotting_laplace.py:58-72)
+    plotting.plot_field_contour(x, tt, grad, join("hessian.png"), levels=50)
+    plotting.plot_action_distribution(a, join("actiondist.png"))
+    plotting.plot_field_contour(x, tt, uu, join("field.png"))
+    return dict(cumreward=_np(final.cum_reward[0]), uu=uu, gradient=grad)

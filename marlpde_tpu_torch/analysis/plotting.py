@@ -1,18 +1,27 @@
-"""makePlot, the testing stage's comparison figures (port of
-marlpde_tpu/analysis/plotting.py:22-27,133-309).
+"""Plotting: the reference's analysis figures (port of
+marlpde_tpu/analysis/plotting.py).
 
-Parity target: python/_model/plotting.py makePlot (:161-433), the 3x6 panel
-DNS/uncontrolled/controlled comparison with field snapshots, error traces,
-spectra and SGS-term KDEs.  The panel data is numpy and scipy; matplotlib is
-imported lazily with the Agg backend.  Where matplotlib is not installed,
-``make_plot`` writes the panel data to ``<prefix>_panels.npz`` in place of
-the figures and prints one line saying so.  The diffusion, Laplace and movie
-plots wait for their envs (ROADMAP items 10.2 and 14).
+Parity targets (python/_model/plotting.py):
+  * plotField / plotError / plotAvgSpectrum and the two movies  :10-135
+  * makePlot — the 3x6 panel DNS/uncontrolled/controlled comparison with
+    field snapshots, error traces, spectra and SGS-term KDEs    :161-433
+  * makeDiffusionPlot                                           :435
+  * plotting_diffusion.py / plotting_laplace.py panels          :13-128 / :13-90
+  * plotEpisode.py over the --save-episodes dumps               :24-52
+  * the korali.rlview training curves (runs/burger_launcher.sh:72)
+
+Every function takes numpy arrays and returns the numbers its figure shows
+(numpy and scipy).  matplotlib is imported lazily with the Agg backend; where
+it is not installed, each function writes those numbers to an ``.npz`` in
+place of its figures (``<prefix>_panels.npz`` for makePlot, else the
+figure's name with ``.npz`` for its extension) and prints one line saying so.
 """
 
 from __future__ import annotations
 
+import glob
 import importlib.util
+import os
 
 import numpy as np
 
@@ -26,6 +35,138 @@ def _plt():
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
     return plt
+
+
+def figure_or_data(fname, data):
+    """pyplot where matplotlib is installed; else write ``data`` to ``fname``
+    with the extension ``.npz``, say so, and return None."""
+    plt = _plt()
+    if plt is None:
+        path = os.path.splitext(fname)[0] + ".npz"
+        np.savez(path, **data)
+        print(f"[plotting] matplotlib is not installed: wrote the data of {fname} to {path}")
+    return plt
+
+
+def plot_field(x, u, fname="field.png", title=None):
+    data = dict(x=np.asarray(x), u=np.asarray(u))
+    plt = figure_or_data(fname, data)
+    if plt is None:
+        return data
+    fig, ax = plt.subplots()
+    ax.plot(data["x"], data["u"])
+    if title:
+        ax.set_title(title)
+    fig.savefig(fname)
+    plt.close(fig)
+    return data
+
+
+def plot_error(x, err, fname="error.png"):
+    data = dict(x=np.asarray(x), err=np.asarray(err))
+    plt = figure_or_data(fname, data)
+    if plt is None:
+        return data
+    fig, ax = plt.subplots()
+    ax.plot(data["x"], data["err"])
+    ax.set_yscale("log")
+    fig.savefig(fname)
+    plt.close(fig)
+    return data
+
+
+def _movie_frames(tt, num_frames):
+    tt = np.asarray(tt)
+    return tt, np.linspace(0, len(tt) - 1, min(num_frames, len(tt))).astype(int)
+
+
+def make_movie_field(x_list, uu_list, tt, fname="evolution.gif", num_frames=100,
+                     ylim=(-1.0, 2.75), fps=20):
+    """Field-evolution movie (makeMovieField, plotting.py:35-67): several
+    trajectories overlaid per frame; ``x_list[i]`` is model i's grid,
+    ``uu_list[i]`` its (T+1, N) trajectory, ``tt`` the shared times.  Writes
+    an animated GIF; returns the frames' times and fields."""
+    tt, fidx = _movie_frames(tt, num_frames)
+    data = dict(t=tt[fidx], **{f"x{i}": np.asarray(x) for i, x in enumerate(x_list)},
+                **{f"uu{i}": np.asarray(uu)[fidx] for i, uu in enumerate(uu_list)})
+    plt = figure_or_data(fname, data)
+    if plt is None:
+        return data
+    from matplotlib import animation
+    colors = ["royalblue", "coral"]          # plotting.py:38-39
+    alphas = [1.0, 0.8]
+    fig, ax = plt.subplots()
+    lines = [ax.plot([], [], "-", color=colors[i % 2], alpha=alphas[i % 2])[0]
+             for i in range(len(uu_list))]
+    ax.set_xlim(min(np.min(x) for x in x_list), max(np.max(x) for x in x_list))
+    ax.set_ylim(*ylim)                        # plotting.py:55
+    txt = ax.text(0.75, 0.9, "", transform=ax.transAxes, fontsize=12)
+
+    def draw(j):
+        for i, ln in enumerate(lines):
+            ln.set_data(data[f"x{i}"], data[f"uu{i}"][j])
+        txt.set_text(f"t={data['t'][j]:.2f}")
+        return lines + [txt]
+
+    ani = animation.FuncAnimation(fig, draw, frames=len(fidx), blit=True)
+    ani.save(fname, writer=animation.PillowWriter(fps=fps))
+    plt.close(fig)
+    return data
+
+
+def make_movie_spectrum(k_list, ek_ktt_list, tt, fname="evolution_spectrum.gif",
+                        num_frames=100, ylim=(1e-7, 1.0), fps=20):
+    """Spectrum-evolution movie (makeMovieSpectrum, plotting.py:69-104):
+    log-log E(k) up to the coarsest model's Nyquist, one frame per time;
+    returns the frames' times, wavenumbers and spectra."""
+    tt, fidx = _movie_frames(tt, num_frames)
+    half = min(np.asarray(ek).shape[-1] for ek in ek_ktt_list) // 2  # :80,88
+    data = dict(t=tt[fidx],
+                **{f"k{i}": np.abs(np.asarray(k)[1:half]) for i, k in enumerate(k_list)},
+                **{f"ek{i}": np.asarray(ek)[fidx, 1:half] for i, ek in enumerate(ek_ktt_list)})
+    plt = figure_or_data(fname, data)
+    if plt is None:
+        return data
+    from matplotlib import animation
+    colors = ["royalblue", "coral"]
+    alphas = [1.0, 0.8]
+    fig, ax = plt.subplots()
+    lines = [ax.plot([], [], "-", color=colors[i % 2], alpha=alphas[i % 2])[0]
+             for i in range(len(ek_ktt_list))]
+    ax.set_xscale("log")
+    ax.set_yscale("log")
+    ax.set_xlim(1, max(half, 2))
+    ax.set_ylim(*ylim)                        # plotting.py:94
+    txt = ax.text(0.75, 0.9, "", transform=ax.transAxes, fontsize=12)
+
+    def draw(j):
+        for i, ln in enumerate(lines):
+            ln.set_data(data[f"k{i}"], data[f"ek{i}"][j])
+        txt.set_text(f"t={data['t'][j]:.2f}")
+        return lines + [txt]
+
+    ani = animation.FuncAnimation(fig, draw, frames=len(fidx), blit=True)
+    ani.save(fname, writer=animation.PillowWriter(fps=fps))
+    plt.close(fig)
+    return data
+
+
+def plot_avg_spectrum(ek_ktt_list, labels, fname="spectrum.png"):
+    """E(k) of each model, modes 1 .. N/2-1, log-log (plotAvgSpectrum)."""
+    data = {f"ek{i}": np.asarray(ek)[1:len(ek) // 2] for i, ek in enumerate(ek_ktt_list)}
+    plt = figure_or_data(fname, data)
+    if plt is None:
+        return data
+    fig, ax = plt.subplots()
+    for i, lab in enumerate(labels):
+        ek = data[f"ek{i}"]
+        ax.loglog(np.arange(1, len(ek) + 1), ek, label=lab)
+    ax.set_xlabel("k")
+    ax.set_ylabel("E(k)")
+    ax.legend()
+    fig.savefig(fname)
+    plt.close(fig)
+    return data
 
 
 def _interp_dns(dns_x, dns_tt, dns_uu, x, tt):
@@ -228,4 +369,217 @@ def make_plot(dns, base, sgs, file_prefix="compare", spectral=True):
         fig4.tight_layout()
         fig4.savefig(f"{file_prefix}_action_closeup.png")
         plt.close(fig4)
+    return data
+
+
+def make_diffusion_plot(x, tt, uu, solution, fname="diffusion.png"):
+    """Evolution vs analytical panels (plotting.py:435, plotting_diffusion.py:13-60):
+    6 snapshots, mse(t) against the solution and mass(t)."""
+    uu, sol = np.asarray(uu), np.asarray(solution)
+    data = dict(snapshots=np.linspace(0, len(uu) - 1, 6, dtype=int),
+                mse=np.mean((uu - sol) ** 2, axis=1), mass=np.sum(uu, axis=1))
+    plt = figure_or_data(fname, data)
+    if plt is None:
+        return data
+    fig, axs = plt.subplots(1, 3, figsize=(15, 4))
+    for i in data["snapshots"]:
+        axs[0].plot(x, uu[i], alpha=0.4 + 0.6 * i / len(uu))
+    axs[0].set_title("evolution")
+    axs[1].plot(tt, data["mse"])
+    axs[1].set_yscale("log")
+    axs[1].set_title("mse(t)")
+    axs[2].plot(tt, data["mass"])
+    axs[2].set_title("mass(t)")
+    fig.tight_layout()
+    fig.savefig(fname)
+    plt.close(fig)
+    return data
+
+
+def plot_action_field(x, action_fields, fname="actions.png"):
+    """Mean/quantile action fields (plotting_diffusion.py:63-86)."""
+    a = np.asarray(action_fields)
+    data = dict(mean=a.mean(0), q10=np.quantile(a, 0.1, 0), q90=np.quantile(a, 0.9, 0))
+    plt = figure_or_data(fname, data)
+    if plt is None:
+        return data
+    fig, ax = plt.subplots()
+    ax.plot(x, data["mean"], label="mean")
+    ax.fill_between(x, data["q10"], data["q90"], alpha=0.3)
+    ax.legend()
+    fig.savefig(fname)
+    plt.close(fig)
+    return data
+
+
+def plot_episode_dumps(npz_glob: str, out_prefix: str = "episode", action_range=(-4.0, 4.0)):
+    """Post-hoc plots from episode dumps (plotEpisode.py:24-52).
+
+    Loads every npz matching ``npz_glob`` (the trainer's --save-episodes
+    output or evaluation dumps), then writes (i) a reward-trajectory quantile
+    fan (median + 20/80% band, plotEpisode.py:25-37) and (ii) a KDE of the
+    action (SGS-forcing) distribution (plotEpisode.py:40-52).  Returns the
+    two written filenames (the ``.npz`` of their data where matplotlib is
+    not installed)."""
+    files = sorted(glob.glob(npz_glob))
+    if not files:
+        raise FileNotFoundError(f"[plotting] no episode dumps match {npz_glob}")
+    rewards, actions = [], []
+    for f in files:
+        d = np.load(f)
+        rewards.append(np.asarray(d["rewards"]).reshape(
+            d["rewards"].shape[0], d["rewards"].shape[1], -1).mean(-1))
+        actions.append(np.asarray(d["actions"]).reshape(-1))
+    rewards = np.concatenate(rewards, axis=0)      # (episodes, T)
+    actions = np.concatenate(actions)
+    quant = dict(t=np.arange(rewards.shape[1]), q20=np.quantile(rewards, 0.2, axis=0),
+                 q50=np.quantile(rewards, 0.5, axis=0), q80=np.quantile(rewards, 0.8, axis=0))
+    svals = np.linspace(action_range[0], action_range[1], 500)
+    # a degenerate (e.g. all-zero) dump has no KDE: its figure is a histogram
+    kde = dict(grid=svals, kde=_kde(actions, svals), actions=actions)
+
+    fq, fk = f"{out_prefix}_quantiles.png", f"{out_prefix}_action_kde.png"
+    plt = figure_or_data(fq, quant)
+    if plt is None:
+        figure_or_data(fk, kde)
+        return f"{out_prefix}_quantiles.npz", f"{out_prefix}_action_kde.npz"
+    fig, ax = plt.subplots()
+    ax.plot(quant["t"], quant["q50"], color="coral")
+    ax.fill_between(quant["t"], quant["q20"], quant["q80"], color="coral", alpha=0.2)
+    ax.set_xlabel("macro-step")
+    ax.set_ylabel("reward")
+    fig.tight_layout()
+    fig.savefig(fq)
+    plt.close(fig)
+
+    fig, ax = plt.subplots()
+    if actions.std() > 0:
+        ax.plot(svals, kde["kde"])
+        ax.set_yscale("log")
+    else:
+        ax.hist(actions, bins=50)
+    ax.set_xlabel("action")
+    fig.tight_layout()
+    fig.savefig(fk)
+    plt.close(fig)
+    return fq, fk
+
+
+def plot_training_curves(history: dict, fname="training.png"):
+    """korali.rlview equivalent: returns/episode-length/REFER beta vs experiences."""
+    data = dict(experiences=np.asarray(history["experiences"]),
+                mean_return=np.asarray(history["mean_return"]),
+                mean_ep_len=np.asarray(history["mean_ep_len"]),
+                beta=np.asarray([m.get("beta", np.nan) for m in history["metrics"]]))
+    plt = figure_or_data(fname, data)
+    if plt is None:
+        return data
+    fig, axs = plt.subplots(1, 3, figsize=(15, 4))
+    for ax, (key, title) in zip(axs, (("mean_return", "mean return"),
+                                      ("mean_ep_len", "episode length"),
+                                      ("beta", "REFER beta"))):
+        ax.plot(data["experiences"], data[key])
+        ax.set_title(title)
+    axs[0].set_xlabel("experiences")
+    fig.tight_layout()
+    fig.savefig(fname)
+    plt.close(fig)
+    return data
+
+
+def _snapshot_rows(T):
+    """The 6 equally spaced frames of a 2x3 evolution panel."""
+    return np.array([min(int(i * T / 6), T - 1) for i in range(6)])
+
+
+def plot_evolution_panels(x, tt, uu, solution=None, fname="evolution.png", second=None):
+    """2x3 field-vs-solution snapshot panels (plotting_diffusion.py:13-33
+    plotEvolution): 6 equally spaced times, solved field solid, analytical
+    solution dashed; ``second`` (T, N) is a further field drawn dashed in
+    the field's colour (Laplace's laplacian, plotting_laplace.py:13-32)."""
+    uu = np.asarray(uu)
+    rows = _snapshot_rows(len(uu))
+    data = dict(rows=rows, u=uu[rows])
+    if solution is not None:
+        data["solution"] = np.asarray(solution)[rows]
+    if second is not None:
+        data["second"] = np.asarray(second)[rows]
+    plt = figure_or_data(fname, data)
+    if plt is None:
+        return data
+    fig, axs = plt.subplots(2, 3, sharex=True, sharey=second is None)
+    for i in range(6):
+        ax = axs[i // 3, i % 3]
+        ax.plot(x, data["u"][i], "-", color="royalblue")
+        if solution is not None:
+            ax.plot(x, data["solution"][i], "--", color="coral")
+        if second is not None:
+            ax.plot(x, data["second"][i], "--", color="royalblue", alpha=0.8)
+    fig.tight_layout()
+    fig.savefig(fname)
+    plt.close(fig)
+    return data
+
+
+def plot_action_contour(x, tt, action_fields, fname="actionfield.png"):
+    """contourf of the action field over (x, t)
+    (plotting_diffusion.py:91-103 plotActionField); a 3-channel field
+    (T, na, 3) gives one panel a channel (plotting_laplace.py:34-56)."""
+    a = np.asarray(action_fields)
+    data = dict(x=np.asarray(x), t=np.asarray(tt), actions=a)
+    plt = figure_or_data(fname, data)
+    if plt is None:
+        return data
+    if a.ndim == 3:
+        fig, axs = plt.subplots(1, a.shape[2], sharex=True, sharey=True, figsize=(12, 4))
+        for c in range(a.shape[2]):
+            cf = axs[c].contourf(x, tt, a[:, :, c])
+    else:
+        fig, ax = plt.subplots(figsize=(6, 6))
+        cf = ax.contourf(x, tt, a)
+    fig.colorbar(cf)
+    fig.tight_layout()
+    fig.savefig(fname)
+    plt.close(fig)
+    return data
+
+
+def plot_field_contour(x, tt, uu, fname="field.png", levels=None):
+    """contourf of u(x, t) (plotting_diffusion.py:105-116 plotDiffusionField —
+    which contourf's actionHistory, an apparent bug; the JAX package plots
+    the field the name promises, and so does the port)."""
+    data = dict(x=np.asarray(x), t=np.asarray(tt), u=np.asarray(uu))
+    plt = figure_or_data(fname, data)
+    if plt is None:
+        return data
+    fig, ax = plt.subplots(figsize=(8, 8))
+    cf = ax.contourf(x, tt, data["u"], **({} if levels is None else dict(levels=levels)))
+    if levels is not None:
+        fig.colorbar(cf)
+    fig.tight_layout()
+    fig.savefig(fname)
+    plt.close(fig)
+    return data
+
+
+def plot_action_distribution(actions, fname="actiondist.png"):
+    """Distribution of all executed actions (plotting_diffusion.py:118-128
+    plotActionDistribution, a violin plot; rendered as KDE + histogram)."""
+    a = np.asarray(actions).ravel()
+    hist, edges = np.histogram(a, bins=64, density=True)
+    data = dict(hist=hist, edges=edges)
+    if a.std() > 1e-12:
+        data["grid"] = np.linspace(a.min(), a.max(), 400)
+        data["kde"] = _kde(a, data["grid"])
+    plt = figure_or_data(fname, data)
+    if plt is None:
+        return data
+    fig, ax = plt.subplots()
+    ax.hist(a, bins=64, density=True, alpha=0.4, color="royalblue")
+    if "kde" in data:
+        ax.plot(data["grid"], data["kde"], color="coral")
+    ax.set_xlabel("action")
+    fig.tight_layout()
+    fig.savefig(fname)
+    plt.close(fig)
     return data

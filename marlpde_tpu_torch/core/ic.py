@@ -1,9 +1,11 @@
-"""Burgers initial conditions (port of marlpde_tpu/core/ic.py:24-142).
+"""Initial conditions and source terms (port of marlpde_tpu/core/ic.py:24-202).
 
 Parity targets:
   * 'sinus'      sin(4*pi*(x+offset)/L)                    (Burger.py:224)
   * 'turbulence' LCG-phase k^-5/3 spectrum + RMS rescale   (Burger.py:227-259)
   * 'forced'     seeded-normal low-amplitude random field  (Burger.py:265-273)
+  * the diffusion/advection box, sinus and gaussian ICs (Diffusion.py:102-112)
+  * the Laplace ICs and source terms (Laplace.py:50-96)
 
 The turbulence IC's LCG (a=1103515245, c=12345, m=2^13) is evaluated in closed
 form (a^k and c*sum a^j precomputed mod m), so a whole batch of envs builds its
@@ -119,3 +121,53 @@ def burger_forced_numpy(seed, x, L):
         r2 = np.random.normal(loc=0.0, scale=1.0)
         u0 += r1 * A * np.sin(2.0 * np.pi * (k * x / L + r2))
     return u0
+
+
+def diffusion_box(offset, x, L):
+    """Box: 1 on |x - L/2 - offset| < L/8   (Diffusion.py:102-104)"""
+    return torch.where(torch.abs(x - L / 2.0 - offset) < L / 8.0, 1.0, 0.0).to(x.dtype)
+
+
+def diffusion_sinus(offset, x, L):
+    """sin((x - offset)*2*pi/L)   (Diffusion.py:108, Advection.py:108)"""
+    return torch.sin((x - offset) * 2.0 * np.pi / L)
+
+
+def diffusion_gaussian(offset, x, L):
+    """exp(-0.5*(L/2 + offset - x)^2)   (Diffusion.py:112)"""
+    return torch.exp(-0.5 * (0.5 * L + offset - x) ** 2)
+
+
+def laplace_ic(kind, x):
+    """Laplace initial fields (Laplace.py:50-57)."""
+    if kind == "zero":
+        return torch.zeros_like(x)
+    if kind == "one":
+        return torch.ones_like(x)
+    if kind == "sin":
+        return 1.0 + torch.sin(x)
+    if kind == "cos":
+        return torch.cos(x)
+    raise ValueError(f"[ic] unknown laplace ic: {kind}")
+
+
+def laplace_force(kind, r, offset, x, L):
+    """Laplace source terms (Laplace.py:63-96).  ``r``: the uniform draw in
+    [0, 1) that picks the branch of the random kinds ('sincos': sin where
+    r > 0.5, else cos; 'fourier': 2, 3 or 4 half-periods where r > 0.66,
+    r > 0.33, else), broadcasting like ``offset``; the other kinds ignore it."""
+    if kind == "zero":
+        return torch.zeros_like(x + offset)
+    if kind == "sin":
+        return torch.sin((x - offset) * 2.0 * np.pi / L)
+    if kind == "cos":
+        return torch.cos((x - offset) * 2.0 * np.pi / L)
+    if kind == "sincos":
+        return torch.where(r > 0.5, torch.sin((x - offset) * 2.0 * np.pi / L),
+                           torch.cos((x - offset) * 2.0 * np.pi / L))
+    if kind == "fourier":
+        m = torch.where(r > 0.66, 2.0, torch.where(r > 0.33, 3.0, 4.0))
+        return torch.sin((x - offset) * m * np.pi / L)
+    if kind == "gaussian":
+        return torch.exp(-0.5 * (0.5 * L - x + offset) ** 2)
+    raise ValueError(f"[ic] unknown laplace force: {kind}")

@@ -31,15 +31,25 @@
 //   j ^ (n % 8)).  The producer copies whole chunks (up to 64 KB) into a ring
 //   of shared-memory stages with cp.async.bulk, completion on an mbarrier;
 //   the consumers release a stage on a second mbarrier once their wgmmas have
-//   read it.  Where every chunk fits (width <= 160 at obs 3: 128 KB of hi+lo
+//   read it, which they learn one chunk later, so a streaming ring needs two
+//   stages.  Where every chunk fits (width <= 160 at obs 3: 128 KB of hi+lo
 //   at width 128), the ring holds all of W2 and it is loaded once for the
 //   whole call; above, it streams, once per 128-row tile.
 // - Layer 1 (D FMAs and one tanhf an element) is computed straight into the
 //   wgmma A fragment (m64k8, 4 values a thread), split into hi/lo in
-//   registers; every element is computed once per tile, the row's inputs
-//   held in registers where D <= 4.  A is double-buffered by k-step, so
-//   layer 1 of k-step k+1 runs while the three wgmmas of k run (one group a
-//   k-step: a group per 4-k-step chunk measured 40% slower at width 256).
+//   registers; every element is computed once per tile.  Where D <= 4 a
+//   row's inputs are held in registers and W1 sits in shared memory (4 W
+//   floats at most); above, W1 and x are read from global memory through the
+//   read-only cache, 4 inputs at a time (16-byte loads) where D is a
+//   multiple of 4, else one at a time, with the FMAs in the same order.  So
+//   the shared memory a block needs besides the W2 ring (1 KB of alignment,
+//   b1, that W1 and the mbarriers) does not depend on D, and every obs width
+//   runs.  (W1 and the x tile staged in shared memory for every D, 4 (W +
+//   128) D bytes, left no room for the ring from D = 108 at width 256, and
+//   were slower than these loads from D = 32 on: PERF.md.)  A is
+//   double-buffered by k-step, so layer 1 of k-step k+1 runs while the
+//   three wgmmas of k run (one group a k-step: a group per 4-k-step chunk
+//   measured 40% slower at width 256).
 // - Layer 2 is wgmma.mma_async m64nWk8 tf32, three per k-step, with the
 //   m64xW float32 accumulator in registers (W/2 a thread).
 // - The epilogue forms h2 = tanh(acc + b2) in the accumulator registers; each
@@ -144,10 +154,6 @@ __device__ __forceinline__ void fence_a(uint32_t (&a)[4]) {
   for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
-__device__ __forceinline__ void named_sync(int id) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(128) : "memory");
-}
-
 struct Args {
   const float* obs;
   const float* w2img;  // kernels/mlp.py:w2_image, (W/32) chunks of 2*W*32 floats
@@ -170,7 +176,8 @@ struct Args {
 };
 
 // shared memory, from a 1024-byte aligned base: stages * chunk bytes of W2
-// images, then W1 (W*D), b1 (W), the x tile (128*D), then 2*stages mbarriers
+// images, then b1 (W), W1 (W * kSmallD, filled where D <= kSmallD), then
+// 2*stages mbarriers
 template <int W>
 __global__ void __launch_bounds__(kThreads, 1) mlp_forward_kernel(const Args args) {
   static_assert(W % kChunkK == 0 && W <= kMaxWidth, "width: a multiple of 32 up to 256");
@@ -181,10 +188,9 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_forward_kernel(const Args arg
   unsigned char* base = smem_raw + (((raw + 1023u) & ~1023u) - raw);
   const int R = args.R, D = args.D, A = args.A, S = args.stages;
   const bool resident = S == kChunks;
-  float* w1s = reinterpret_cast<float*>(base + (size_t)S * kChunkBytes);
-  float* b1s = w1s + W * D;
-  float* xs = b1s + W;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(xs + kTileRows * D);  // full[S], empty[S]
+  float* b1s = reinterpret_cast<float*>(base + (size_t)S * kChunkBytes);
+  float* w1s = b1s + W;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(w1s + W * kSmallD);  // full[S], empty[S]
   const uint32_t ring = smem_addr(base);
   const uint32_t full0 = smem_addr(bars), empty0 = full0 + 8 * S;
 
@@ -196,8 +202,9 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_forward_kernel(const Args arg
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int e = tid; e < W * D; e += kThreads) w1s[e] = args.w1[e];
   for (int e = tid; e < W; e += kThreads) b1s[e] = args.b1[e];
+  if (D <= kSmallD)
+    for (int e = tid; e < W * D; e += kThreads) w1s[e] = args.w1[e];
   __syncthreads();
 
   const int n_tiles = (R + kTileRows - 1) / kTileRows;
@@ -233,29 +240,26 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_forward_kernel(const Args arg
   const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int r0 = wg * 64 + warp * 16 + g;  // row of the tile; r0 + 8 the other
-  const float* xw = xs + wg * 64 * D;
+  // 16-byte loads of W1 and x rows: D a multiple of 4, both 16-byte aligned
+  const bool vec4 = D % 4 == 0 && (reinterpret_cast<uintptr_t>(args.obs) |
+                                   reinterpret_cast<uintptr_t>(args.w1)) % 16 == 0;
   int it = 0;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long long row0 = (long long)tile * kTileRows;
-    named_sync(1 + wg);  // the warpgroup is done with the last tile's x
-    for (int e = tid % 128; e < 64 * D; e += 128) {
-      const long long gi = (row0 + wg * 64) * D + e;
-      xs[wg * 64 * D + e] = gi < (long long)R * D ? args.obs[gi] : 0.f;
-    }
-    named_sync(1 + wg);
-
     float acc[W / 2];
 #pragma unroll
     for (int i = 0; i < W / 2; ++i) acc[i] = 0.f;
     uint32_t a_hi[2][4], a_lo[2][4];
-    const float* x0 = xw + (r0 - wg * 64) * D;
-    const float* x1 = x0 + 8 * D;
+    // the thread's two rows; a row past R is read as the last one (its
+    // outputs are not written)
+    const float* x0 = args.obs + (size_t)min(row0 + r0, (long long)R - 1) * D;
+    const float* x1 = args.obs + (size_t)min(row0 + r0 + 8, (long long)R - 1) * D;
     // up to kSmallD inputs (the burger envs' 3) stay in registers for the tile
     float xr0[kSmallD], xr1[kSmallD];
 #pragma unroll
     for (int d = 0; d < kSmallD; ++d) {
-      xr0[d] = d < D ? x0[d] : 0.f;
-      xr1[d] = d < D ? x1[d] : 0.f;
+      xr0[d] = d < D ? __ldg(x0 + d) : 0.f;
+      xr1[d] = d < D ? __ldg(x1 + d) : 0.f;
     }
     int prev_stage = -1;
     for (int kc = 0; kc < kChunks; ++kc, ++it) {
@@ -269,24 +273,45 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_forward_kernel(const Args arg
         // layer 1 into the A fragment: (r0, c), (r0+8, c), (r0, c+4), (r0+8, c+4)
         const int c = kc * kChunkK + kk * 8 + t;
         float h00 = 0.f, h10 = 0.f, h01 = 0.f, h11 = 0.f;
-        const float* wa = w1s + c * D;
+        const float* wa = args.w1 + (size_t)c * D;
         const float* wb = wa + 4 * D;
         if (D <= kSmallD) {
+          const float* sa = w1s + c * D;
+          const float* sb = sa + 4 * D;
 #pragma unroll
           for (int d = 0; d < kSmallD; ++d) {
             if (d < D) {
-              h00 = fmaf(xr0[d], wa[d], h00);
-              h10 = fmaf(xr1[d], wa[d], h10);
-              h01 = fmaf(xr0[d], wb[d], h01);
-              h11 = fmaf(xr1[d], wb[d], h11);
+              h00 = fmaf(xr0[d], sa[d], h00);
+              h10 = fmaf(xr1[d], sa[d], h10);
+              h01 = fmaf(xr0[d], sb[d], h01);
+              h11 = fmaf(xr1[d], sb[d], h11);
+            }
+          }
+        } else if (vec4) {
+#pragma unroll 4
+          for (int d = 0; d < D; d += 4) {
+            const float4 xa = __ldg(reinterpret_cast<const float4*>(x0 + d));
+            const float4 xb = __ldg(reinterpret_cast<const float4*>(x1 + d));
+            const float4 va = __ldg(reinterpret_cast<const float4*>(wa + d));
+            const float4 vb = __ldg(reinterpret_cast<const float4*>(wb + d));
+            const float ra[4] = {xa.x, xa.y, xa.z, xa.w}, rb[4] = {xb.x, xb.y, xb.z, xb.w};
+            const float ca[4] = {va.x, va.y, va.z, va.w}, cb[4] = {vb.x, vb.y, vb.z, vb.w};
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              h00 = fmaf(ra[q], ca[q], h00);
+              h10 = fmaf(rb[q], ca[q], h10);
+              h01 = fmaf(ra[q], cb[q], h01);
+              h11 = fmaf(rb[q], cb[q], h11);
             }
           }
         } else {
           for (int d = 0; d < D; ++d) {
-            h00 = fmaf(x0[d], wa[d], h00);
-            h10 = fmaf(x1[d], wa[d], h10);
-            h01 = fmaf(x0[d], wb[d], h01);
-            h11 = fmaf(x1[d], wb[d], h11);
+            const float xa = __ldg(x0 + d), xb = __ldg(x1 + d);
+            const float wad = __ldg(wa + d), wbd = __ldg(wb + d);
+            h00 = fmaf(xa, wad, h00);
+            h10 = fmaf(xb, wad, h10);
+            h01 = fmaf(xa, wbd, h01);
+            h11 = fmaf(xb, wbd, h11);
           }
         }
         const float h[4] = {tanhf(h00 + b1s[c]), tanhf(h10 + b1s[c]), tanhf(h01 + b1s[c + 4]),
@@ -390,11 +415,15 @@ int launch(const Args& args, cudaStream_t stream) {
   if (err != cudaSuccess) return (int)err;
   err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return (int)err;
-  // the ring takes what W1, b1 and the x tile leave, up to all of W2
-  const size_t fixed = 1024 + sizeof(float) * ((size_t)W * args.D + W + (size_t)kTileRows * args.D);
+  // The ring takes what b1 and the small-D W1 leave, all of W2 where it
+  // fits, else as many stages as fit, at least two (a stage is released one
+  // chunk after it is read): three of the widest chunk (2 * 256 * 32 * 4
+  // bytes) fit in 227 KB
+  const size_t fixed = 1024 + sizeof(float) * W * (1 + kSmallD);
+  const int min_stages = kChunks < 2 ? kChunks : 2;
   int stages = kChunks;
   while (stages > 0 && fixed + stages * (kChunkBytes + 16) > (size_t)max_smem) --stages;
-  if (stages == 0) return (int)cudaErrorInvalidValue;
+  if (stages < min_stages) return (int)cudaErrorInvalidValue;
   const size_t smem = fixed + stages * (kChunkBytes + 16);
   Args a = args;
   a.stages = stages;

@@ -9,12 +9,18 @@ Driver map (reference -> preset name):
   run-vracer-burger-jax.py        -> 'burger-jax'  (the spectral RK3 scheme)
   (the nunoise path of burger_environment.py:57-75) -> 'burger-lockstep'
   run-vracer-ks.py                -> 'ks'
+  run-vracer-diffusion-simple.py  -> 'diffusion-simple'
+  run-vracer-diffusion.py         -> 'diffusion-stencil3'
+  run-vracer-diffusion-error.py   -> 'diffusion-error'
+  run-vracer-advection-simple.py  -> 'advection-simple'
+  run-vracer-laplace.py           -> 'laplace'
 
 Every Burgers config runs on the general per-env env (``burger_env.step``,
 torch.fft); where the whole-batch env implements the config
 (``fast_burger_ok``) and ``fast`` is not 'off', its pair on the ABCN op is
-attached as well.  The diffusion, advection and Laplace presets raise
-NotImplementedError until their slice lands (ROADMAP queue 1).
+attached as well.  The diffusion, advection and Laplace envs have no pool:
+their consts (``rollout.Placement``) say only where and in which dtype they
+live.
 """
 
 from __future__ import annotations
@@ -25,10 +31,10 @@ from functools import partial
 import numpy as np
 import torch
 
-from marlpde_tpu_torch import NOT_PORTED as _NOT_PORTED
 from marlpde_tpu_torch.device import resolve_device
-from marlpde_tpu_torch.envs import burger_env, burger_fast, ks_env
-from marlpde_tpu_torch.envs.rollout import Env
+from marlpde_tpu_torch.envs import (advection_env, burger_env, burger_fast, diffusion_env,
+                                    ks_env, laplace_env)
+from marlpde_tpu_torch.envs.rollout import Env, Placement
 
 
 def fast_burger_ok(cfg: burger_env.BurgerEnvConfig) -> bool:
@@ -127,6 +133,48 @@ def make_ks_env(cfg: ks_env.KSEnvConfig = None, n_dns: int = 1, pool=None,
         consts=pool)
 
 
+def _simple_env(name, module, cfg, dtype, device, action_low, action_high) -> Env:
+    """An env without a pool on ``device`` (None: the card) in ``dtype``."""
+    return Env(
+        name=name, cfg=cfg, reset=partial(module.reset, cfg), step=partial(module.step, cfg),
+        obs_dim=cfg.obs_dim, num_agents=cfg.num_agents, act_dim=cfg.actions_per_agent,
+        episode_length=cfg.episode_length, action_low=action_low, action_high=action_high,
+        consts=Placement(device=resolve_device(device), dtype=dtype))
+
+
+def make_diffusion_env(cfg: diffusion_env.DiffusionEnvConfig = None, dtype=torch.float32,
+                       device=None, **overrides) -> Env:
+    if cfg is None:
+        cfg = diffusion_env.DiffusionEnvConfig(**overrides)
+    elif overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    name = {"simple": "diffusion-simple", "error": "diffusion-error",
+            "stencil3": "diffusion-stencil3"}[cfg.mode]
+    # run-vracer-diffusion-simple.py:95-96; the error script acts in [-0.1, 0.1]
+    lo, hi = (-0.1, 0.1) if cfg.mode == "error" else (-5.0, 5.0)
+    return _simple_env(name, diffusion_env, cfg, dtype, device, lo, hi)
+
+
+def make_advection_env(cfg: advection_env.AdvectionEnvConfig = None, dtype=torch.float32,
+                       device=None, **overrides) -> Env:
+    if cfg is None:
+        cfg = advection_env.AdvectionEnvConfig(**overrides)
+    elif overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    # run-vracer-advection-simple.py:95-96
+    return _simple_env("advection-simple", advection_env, cfg, dtype, device, -2.0, 2.0)
+
+
+def make_laplace_env(cfg: laplace_env.LaplaceEnvConfig = None, dtype=torch.float32,
+                     device=None, **overrides) -> Env:
+    if cfg is None:
+        cfg = laplace_env.LaplaceEnvConfig(**overrides)
+    elif overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    # run-vracer-laplace.py:85-86
+    return _simple_env("laplace", laplace_env, cfg, dtype, device, -3.0, 3.0)
+
+
 MAKERS = {
     "burger": make_burger_env,
     "burger-jax": make_burger_jax_env,
@@ -136,16 +184,15 @@ MAKERS = {
     "burger-fd": lambda **kw: make_burger_env(
         scheme="fd", state_bound=kw.pop("state_bound", 1e6), **kw),
     "ks": make_ks_env,
+    "diffusion-simple": make_diffusion_env,
+    "diffusion-error": lambda **kw: make_diffusion_env(mode="error", **kw),
+    "diffusion-stencil3": lambda **kw: make_diffusion_env(mode="stencil3", **kw),
+    "advection-simple": make_advection_env,
+    "laplace": make_laplace_env,
 }
-
-# presets of the JAX registry that wait for a later slice
-PENDING = ("diffusion-simple", "diffusion-error", "diffusion-stencil3", "advection-simple",
-           "laplace")
 
 
 def make_env(name: str, **overrides) -> Env:
-    if name in PENDING:
-        raise NotImplementedError(f"[registry] env '{name}' {_NOT_PORTED}")
     if name not in MAKERS:
         raise ValueError(f"[registry] unknown env '{name}'; have {sorted(MAKERS)}")
     return MAKERS[name](**overrides)

@@ -61,6 +61,15 @@ class Env:
         return (self.batch_reset if self.whole_batch else self.reset)(consts, generator, counts)
 
 
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """The consts of an env without a pool (diffusion, advection, Laplace):
+    only where and in which dtype its envs live."""
+
+    device: torch.device
+    dtype: torch.dtype
+
+
 def placement(consts):
     """(device, dtype) of an env's consts; raises where they carry neither."""
     device, dtype = getattr(consts, "device", None), getattr(consts, "dtype", None)
@@ -70,15 +79,29 @@ def placement(consts):
     return device, dtype
 
 
+def _fields(state):
+    """(u, ektt or None) of a state after a step: the solved field, and for
+    spectral envs (a running ``ek_sum``) the cumulative-mean spectrum."""
+    u = state.u if hasattr(state, "u") else state.solver.u
+    if not hasattr(state, "ek_sum"):
+        return u, None
+    io = state.ioutnum if hasattr(state, "ioutnum") else state.solver.ioutnum
+    return u, state.ek_sum / (io + 1).to(u.dtype)[..., None]
+
+
 def collect_episodes(env: Env, rl_cfg, ts, generator, batch_size: int,
                      episode_base: int = 0, deterministic: bool = False,
-                     consts=None):
+                     consts=None, record_fields: bool = False):
     """Roll out ``batch_size`` envs for a full episode.
 
     Returns (traj, final_state): traj holds (B, T, na, ...) tensors obs,
     actions, mu, sigma, rewards, and mask (B, T), truncated (B,), final_obs
     (B, na, obs_dim) — ready for the replays.  ``generator`` draws the reset
-    offsets and the action noise."""
+    offsets and the action noise.  ``record_fields`` also records the solved
+    field ``fields`` (B, T, N) after each step and, for spectral envs, the
+    cumulative-mean energy spectrum ``ektt`` (B, T, N): the contents of the
+    reference's save-episode npz (burger_environment.py:207-238: sgs_u /
+    sgs_Ektt); the replays ignore both."""
     consts = env.consts if consts is None else consts
     device = ts.beta.device
     counts = episode_base + torch.arange(batch_size, device=device)
@@ -94,6 +117,7 @@ def collect_episodes(env: Env, rl_cfg, ts, generator, batch_size: int,
         rewards=torch.empty((B, T, na), **kw),
         mask=torch.empty((B, T), **kw))
     blown = torch.empty((B, T), dtype=torch.bool, device=obs.device)
+    recorded = dict(fields=[], ektt=[])
     for t in range(T):
         if deterministic:
             _, mu, sigma = vracer.policy_apply(rl_cfg, ts, obs)
@@ -109,12 +133,18 @@ def collect_episodes(env: Env, rl_cfg, ts, generator, batch_size: int,
         traj["rewards"][:, t] = rew
         blown[:, t] = info["blown"]
         obs = obs_next
+        if record_fields:
+            u, ektt = _fields(state)
+            recorded["fields"].append(u)
+            if ektt is not None:
+                recorded["ektt"].append(ektt)
     # Truncated-vs-Terminal bookkeeping (burger_environment.py:198-204): a
     # numeric blowup ends the episode "Truncated" and the learner bootstraps
     # from V(final_obs); envs freeze once done, so final_obs is the
     # observation at truncation time
     traj["truncated"] = blown.any(dim=1)
     traj["final_obs"] = obs
+    traj.update({k: torch.stack(v, dim=1) for k, v in recorded.items() if v})
     return traj, state
 
 

@@ -31,7 +31,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from marlpde_tpu_torch import NOT_PORTED as _NOT_PORTED
 from marlpde_tpu_torch.envs.rollout import Env, collect_episodes
 from marlpde_tpu_torch.rl import replay as replay_mod
 from marlpde_tpu_torch.rl import replay_flat, running_stats, vracer
@@ -41,8 +40,7 @@ from marlpde_tpu_torch.utils.profiling import Throughput
 
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
-    """Fields, defaults and meaning as marlpde_tpu/train/trainer.py:35-80.
-    ``save_episodes_dir`` raises NotImplementedError in ``train``."""
+    """Fields, defaults and meaning as marlpde_tpu/train/trainer.py:35-80."""
 
     num_envs: int = 16                 # episodes per generation
     max_experiences: float = 5e5       # korali Termination Criteria (run-vracer-burger.py:195)
@@ -147,12 +145,11 @@ def build_fused_generation(env: Env, rl_cfg: vracer.VracerConfig,
     Returns ``fused_generation(ts, rep, generator, episode_base, consts) ->
     (ts, rep, traj, final, metrics, stats)``; ``metrics`` are the last
     update's (empty when no update ran) and ``stats`` hold host numbers."""
-    if tc.save_episodes_dir is not None:
-        raise NotImplementedError(f"[trainer] save_episodes_dir {_NOT_PORTED}")
+    record = tc.save_episodes_dir is not None
 
     def fused_generation(ts, rep, generator, episode_base, consts):
         traj, final = collect_episodes(env, rl_cfg, ts, generator, tc.num_envs,
-                                       episode_base, consts=consts)
+                                       episode_base, consts=consts, record_fields=record)
         ts, rep = insert_generation(rl_cfg, ts, rep, traj)
         did = _updates_started(rl_cfg, rep)
         ts, rep, metrics = run_updates(rl_cfg, ts, rep, generator, upd_per_gen if did else 0)
@@ -187,6 +184,29 @@ def _n_target(rl_cfg, tc, rep, T, real_in_replay, gen_exp, updates_done, upd_per
                    max(0.0, gen_exp * tc.reuse_ratio / exp_per_update)))
 
 
+def save_episodes(tc: TrainerConfig, gen: int, traj, final):
+    """The episodes of generation ``gen`` whose mean return beats
+    ``tc.save_episodes_threshold``, as ``episodes_gen{gen}.npz`` in
+    ``tc.save_episodes_dir`` (marlpde_tpu/train/trainer.py:424-445): the RL
+    tensors actions, rewards, obs and cumreward, plus the reference's
+    save-episode content (burger_environment.py:207-238) where the env has
+    it: the solved fields (sgs_u), the cumulative spectra (sgs_Ektt) and the
+    DNS pool rows (indeces, int32 as in the JAX package)."""
+    cum = final.cum_reward.reshape(tc.num_envs, -1).mean(-1)
+    keep = (cum > tc.save_episodes_threshold).cpu().numpy()
+    if not keep.any():
+        return None
+    os.makedirs(tc.save_episodes_dir, exist_ok=True)
+    host = lambda x: x.detach().cpu().numpy()[keep]
+    extra = {k: host(traj[k]) for k in ("fields", "ektt") if k in traj}
+    if hasattr(final, "sidx"):
+        extra["indeces"] = host(final.sidx).astype(np.int32)
+    path = os.path.join(tc.save_episodes_dir, f"episodes_gen{gen}.npz")
+    np.savez_compressed(path, actions=host(traj["actions"]), rewards=host(traj["rewards"]),
+                        obs=host(traj["obs"]), cumreward=host(final.cum_reward), **extra)
+    return path
+
+
 def _save_checkpoint(tc, ts, history, rep, generator, gen, total_exp, episode_base,
                      real_in_replay, rl_cfg):
     ckpt.save_train_state(tc.checkpoint_dir, ts, history)
@@ -211,8 +231,7 @@ def train(env: Env, rl_cfg: Optional[vracer.VracerConfig] = None,
     episode_base / real_in_replay counters, so a resumed run continues
     bitwise.  ``callback(gen, ts, rep, history)`` runs after each generation."""
     rl_cfg = rl_cfg or default_rl_config(env)
-    if tc.save_episodes_dir is not None:
-        raise NotImplementedError(f"[trainer] TrainerConfig.save_episodes_dir {_NOT_PORTED}")
+    record = tc.save_episodes_dir is not None
     device, dtype = env.device, env.dtype
     generator = torch.Generator(device=device)
     generator.manual_seed(tc.seed)
@@ -262,7 +281,8 @@ def train(env: Env, rl_cfg: Optional[vracer.VracerConfig] = None,
 
     t0 = time.time()
     while total_exp < tc.max_experiences:
-        traj, final = collect_episodes(env, rl_cfg, ts, generator, tc.num_envs, episode_base)
+        traj, final = collect_episodes(env, rl_cfg, ts, generator, tc.num_envs, episode_base,
+                                       record_fields=record)
         ts, rep = insert_generation(rl_cfg, ts, rep, traj)
         episode_base += tc.num_envs
         if real_mode:
@@ -311,6 +331,8 @@ def train(env: Env, rl_cfg: Optional[vracer.VracerConfig] = None,
                 replay_occupancy=int(occ)))
             prev_probe_mu = mu_p
 
+        if record:
+            save_episodes(tc, gen, traj, final)
         if tc.testing_frequency and gen % tc.testing_frequency == 0:
             _, tfinal = collect_episodes(env, rl_cfg, ts, generator, tc.testing_episodes, 0,
                                          deterministic=True)

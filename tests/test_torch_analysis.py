@@ -327,6 +327,118 @@ def test_ks_testing_batched_rows_match_jax_row_by_row(tmp_path, fast_figures):
 
 
 @pytest.mark.parametrize("fn", [teval.simple_env_testing, teval.laplace_testing])
-def test_unported_testing_branches_raise(fn, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fn(None, None, None, str(tmp_path))
+def test_unported_testing_branches_raise(fn, tmp_path, fast_figures):
+    """The testing branches of the diffusion/advection and Laplace families,
+    ported since: on the same weights and env (float64, no reset noise) the
+    port returns JAX's arrays at 1e-10 and writes JAX's files; simple-env
+    testing also the error_rl_{N}.json curves, equal to JAX's."""
+    import json
+
+    from marlpde_tpu.envs import diffusion_env as jdif
+    from marlpde_tpu.envs import laplace_env as jlap
+    from marlpde_tpu.envs import registry as jreg
+    from marlpde_tpu_torch.envs import registry as treg
+
+    simple = fn is teval.simple_env_testing
+    name, kw, jmod = (("diffusion-simple", dict(N=16, num_agents=2, noise=0.0), jdif) if simple
+                      else ("laplace", dict(num_agents=6, sforce="sin"), jlap))
+    kw["episode_length"] = 20
+    jenv = jreg.make_env(name, **kw)
+    jenv = dataclasses.replace(jenv, reset=lambda c, k, n: jmod.reset(jenv.cfg, k, n,
+                                                                      dtype=jnp.float64))
+    tenv = treg.make_env(name, device="cpu", dtype=torch.float64, **kw)
+    jcfg_rl = jtr.default_rl_config(jenv, width=16, sigma_max=5.0)
+    jts = params64(jcfg_rl, jv.init_train(jcfg_rl, jax.random.key(1), dtype=jnp.float64))
+    rng = np.random.default_rng(5)
+    jts = jts.replace(params=jax.tree.map(
+        lambda a: a + jnp.asarray(rng.standard_normal(a.shape) * 0.3), jts.params))
+    tcfg_rl = tv.VracerConfig(**dataclasses.asdict(jcfg_rl))
+    ts = train_state_from_jax(tcfg_rl, jts)
+    jfn = jeval.simple_env_testing if simple else jeval.laplace_testing
+    want = jfn(jenv, jcfg_rl, jts, str(tmp_path / "j"), key=jax.random.key(0))
+    got = fn(tenv, tcfg_rl, ts, str(tmp_path / "t"))
+    assert list(got) == list(want)
+    for k in want:
+        _close(got[k], np.asarray(want[k]), 1e-10, k)
+    assert np.abs(got["uu"] - got["uu"][:1]).max() > 1e-6
+    files = sorted(p.name for p in (tmp_path / "t").iterdir())
+    assert files == sorted(p.name for p in (tmp_path / "j").iterdir())
+    if simple:
+        with open(tmp_path / "t" / "error_rl_16.json") as f, \
+                open(tmp_path / "j" / "error_rl_16.json") as g:
+            tcurves, jcurves = json.load(f), json.load(g)
+        assert tcurves["survived_steps"] == jcurves["survived_steps"]
+        for k in ("t", "mse", "linf", "mass"):
+            _close(np.asarray(tcurves[k]), np.asarray(jcurves[k]), 1e-10, k)
+        assert {"compare.png", "compare_evolution.png", "evolution.png"} <= set(files)
+    else:
+        assert {"hessian.png", "actions.png", "evolution.png"} <= set(files)
+
+
+PLOTS = {
+    "plot_field": lambda x, tt, uu, a: (x, uu[0]),
+    "plot_error": lambda x, tt, uu, a: (x, np.abs(uu[0]) + 1e-3),
+    "plot_avg_spectrum": lambda x, tt, uu, a: ([np.abs(np.fft.fft(uu[0])) ** 2,
+                                                np.abs(np.fft.fft(uu[1])) ** 2], ["a", "b"]),
+    "make_diffusion_plot": lambda x, tt, uu, a: (x, tt, uu, uu * 0.9),
+    "plot_action_field": lambda x, tt, uu, a: (x, a),
+    "plot_evolution_panels": lambda x, tt, uu, a: (x, tt, uu, uu * 0.9),
+    "plot_action_contour": lambda x, tt, uu, a: (x, tt, a),
+    "plot_field_contour": lambda x, tt, uu, a: (x, tt, uu),
+    "plot_action_distribution": lambda x, tt, uu, a: (a,),
+}
+
+
+@pytest.mark.parametrize("name", list(PLOTS))
+def test_remaining_plots_write_jax_s_figure_or_their_data(name, tmp_path, monkeypatch,
+                                                          fast_figures):
+    """Each figure of the rest of plotting.py: the same file as JAX's; where
+    matplotlib is missing, an .npz of the numbers it shows, which are the
+    numbers the JAX figure draws."""
+    rng = np.random.default_rng(3)
+    x, tt = np.linspace(0, 2 * np.pi, 16, endpoint=False), np.arange(1, 9) * 0.01
+    uu, a = rng.standard_normal((8, 16)), rng.standard_normal((8, 16))
+    args = PLOTS[name](x, tt, uu, a)
+    jfile, tfile = str(tmp_path / "j.png"), str(tmp_path / "t.png")
+    getattr(jplot, name)(*args, fname=jfile)
+    data = getattr(tplot, name)(*args, fname=tfile)
+    assert (tmp_path / "j.png").exists() and (tmp_path / "t.png").exists()
+    monkeypatch.setattr(tplot, "_plt", lambda: None)
+    nodraw = getattr(tplot, name)(*args, fname=str(tmp_path / "n.png"))
+    with np.load(tmp_path / "n.npz") as saved:
+        assert sorted(saved.files) == sorted(data)
+        for k in data:
+            np.testing.assert_array_equal(saved[k], data[k])
+            np.testing.assert_array_equal(nodraw[k], data[k])
+    if name == "make_diffusion_plot":
+        np.testing.assert_allclose(data["mse"], np.mean((uu - uu * 0.9) ** 2, axis=1))
+        np.testing.assert_allclose(data["mass"], uu.sum(1))
+    if name == "plot_action_field":
+        np.testing.assert_allclose(data["q90"], np.quantile(a, 0.9, 0))
+
+
+def test_movies_and_training_curves(tmp_path, monkeypatch):
+    """The two movies (a few frames each, drawn) and the rlview curves: JAX's
+    files; the frames' data where matplotlib is missing."""
+    rng = np.random.default_rng(4)
+    x, tt = np.linspace(0, 2 * np.pi, 16, endpoint=False), np.arange(6) * 0.1
+    uu = rng.standard_normal((6, 16))
+    ek = np.abs(rng.standard_normal((6, 16))) + 1e-3
+    k = np.fft.fftfreq(16, 1.0 / 16)
+    hist = dict(experiences=[10, 20, 30], mean_return=[-1.0, -0.5, -0.2],
+                mean_ep_len=[5, 5, 5], metrics=[{}, {"beta": 0.3}, {"beta": 0.29}])
+    for mod, d in ((jplot, "j"), (tplot, "t")):
+        mod.make_movie_field([x, x], [uu, uu * 0.5], tt, str(tmp_path / f"{d}_f.gif"),
+                             num_frames=3)
+        mod.make_movie_spectrum([k], [ek], tt, str(tmp_path / f"{d}_s.gif"), num_frames=3)
+        mod.plot_training_curves(hist, str(tmp_path / f"{d}_c.png"))
+    for f in ("f.gif", "s.gif", "c.png"):
+        assert (tmp_path / f"t_{f}").stat().st_size > 0 and (tmp_path / f"j_{f}").exists()
+    monkeypatch.setattr(tplot, "_plt", lambda: None)
+    frames = tplot.make_movie_field([x], [uu], tt, str(tmp_path / "n.gif"), num_frames=3)
+    np.testing.assert_array_equal(frames["uu0"], uu[[0, 2, 5]])
+    spec = tplot.make_movie_spectrum([k], [ek], tt, str(tmp_path / "m.gif"), num_frames=3)
+    np.testing.assert_array_equal(spec["ek0"], ek[[0, 2, 5], 1:8])
+    curves = tplot.plot_training_curves(hist, str(tmp_path / "n.png"))
+    np.testing.assert_array_equal(curves["beta"], [np.nan, 0.3, 0.29])
+    assert (tmp_path / "n.npz").exists() and (tmp_path / "m.npz").exists()

@@ -1,6 +1,5 @@
 """The port's entry points run on the card unless the caller asks for the CPU:
-``device.resolve_device(None)``, ``registry.make_env`` (every Burgers preset
-and KS) and
+``device.resolve_device(None)``, ``registry.make_env`` (every preset) and
 ``run.main`` / ``run.make_workload`` without a device (training, KS and the
 --test stage) raise where torch.cuda is not available, and ``device="cpu"``
 runs.  torch.cuda.is_available is patched to
@@ -103,3 +102,27 @@ def test_main_ks_and_test_without_device_raise_and_write_nothing(no_card, tmp_pa
     with pytest.raises(RuntimeError, match=NO_CARD):
         trun.main(TINY + extra)
     assert list(tmp_path.iterdir()) == []
+
+
+@pytest.mark.parametrize("name", ["diffusion-simple", "diffusion-error", "diffusion-stencil3",
+                                  "advection-simple", "laplace"])
+def test_simple_presets_raise_without_a_card_and_run_on_the_cpu(no_card, name):
+    """The envs without a pool: their consts hold the device, resolved like
+    every other preset's."""
+    with pytest.raises(RuntimeError, match=NO_CARD):
+        registry.make_env(name)
+    env = registry.make_env(name, device="cpu")
+    assert env.device == torch.device("cpu") and env.dtype == torch.float32
+
+
+@pytest.mark.parametrize("extra", [[], ["--bf16"], ["--test", "--bf16"]],
+                         ids=["train", "bf16", "test-bf16"])
+def test_main_of_a_simple_preset_without_device_raises_and_keeps_the_precision(
+        no_card, tmp_path, monkeypatch, extra):
+    """Without a card --bf16 raises before it lowers any precision, and
+    writes nothing."""
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match=NO_CARD):
+        trun.main(["laplace", "--nagents", "4", "--episodelength", "5"] + extra)
+    assert list(tmp_path.iterdir()) == []
+    assert not tdevice.reduced() and not torch.backends.cuda.matmul.allow_tf32

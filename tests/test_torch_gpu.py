@@ -116,13 +116,18 @@ def test_mlp_kernel_matches_module(cuda, mu_param, sigma_max, R):
 
 
 @pytest.mark.parametrize("mu_param", ["absolute", "sigma_relative"])
-@pytest.mark.parametrize("obs_dim,act_dim", [(3, 1), (32, 32)])
+@pytest.mark.parametrize("obs_dim,act_dim", [(3, 1), (32, 32), (33, 8), (80, 16), (128, 2),
+                                             (128, 128), (256, 256)])
 @pytest.mark.parametrize("width", range(32, 257, 32))
 def test_mlp_kernel_widths(cuda, width, obs_dim, act_dim, mu_param):
     """Every width the kernel takes (one wgmma width each; W2 resident up to
-    160, streamed above), at the burger-marl shape and at the single-agent
-    burger shape (32 obs, 32 actions), whose W1 and x tile leave the W2 ring
-    fewer stages."""
+    160, streamed above), at the burger-marl shape (inputs in registers), at
+    the single-agent burger shape (32 obs, 32 actions), at obs 33 (inputs
+    read one at a time), and at obs 80, 128 and 256 (diffusion-stencil3 and
+    diffusion-simple at obs 128, burger-fd at width 256): with W1 and the x
+    tile staged in shared memory, obs 80 at width 256 left one stage to a
+    streaming ring, which hung, and obs 128 from width 160 and obs 256 from
+    width 64 left none, which raised."""
     g = torch.Generator().manual_seed(width)
     net = networks.VracerNet(obs_dim, act_dim, width=width, mu_param=mu_param, device=cuda)
     with torch.no_grad():
@@ -135,6 +140,30 @@ def test_mlp_kernel_widths(cuda, width, obs_dim, act_dim, mu_param):
             assert o.shape == r.shape
             # float32 sums of up to 256 terms in another order than cuBLAS
             assert (o - r).abs().max().item() <= 2e-5
+
+
+@pytest.mark.parametrize("obs_dim,act_dim", [(32, 16), (128, 128)])
+@pytest.mark.parametrize("width", [32, 128, 256])
+def test_mlp_kernel_unaligned_inputs_give_the_aligned_bits(cuda, width, obs_dim, act_dim):
+    """obs whose rows are not 16-byte aligned are read one input at a time,
+    aligned ones four at a time, with the FMAs in the same order: the same
+    bits, and within 2e-5 of the module."""
+    g = torch.Generator().manual_seed(width + obs_dim)
+    net = networks.VracerNet(obs_dim, act_dim, width=width, device=cuda)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.copy_(torch.randn(p.shape, generator=g).to(cuda) * (0.5 / np.sqrt(p.shape[-1])))
+        flat = torch.randn(1000 * obs_dim + 1, generator=g).to(cuda)
+        unaligned = flat[1:].view(1000, obs_dim)
+        aligned = unaligned.clone()
+        assert unaligned.is_contiguous() and unaligned.data_ptr() % 16 == 4
+        first = mlp.mlp_forward(unaligned, net)
+        second = mlp.mlp_forward(aligned, net)
+        ref = net(aligned)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    for o, r in zip(first, ref):
+        assert (o - r).abs().max().item() <= 2e-5
 
 
 def _mlp_net(cuda, width, seed):

@@ -187,7 +187,9 @@ def test_training_only_flags_are_ignored_by_the_test_stage_as_in_jax(flag, tmp_p
                                                                      monkeypatch, capsys):
     """The JAX CLI skips its mesh and apg branches under --test, and its test
     stage never reads --save-episodes' directory (marlpde_tpu/run.py:388-390,
-    458,498): the port's summary equals the JAX one.  --bf16 stays refused."""
+    458,498): the port's summary equals the JAX one.  --bf16 is taken by the
+    test stage too; training refuses --mesh and --learner apg, and trains
+    with --save-episodes."""
     jdir, tdir = tmp_path / "j", tmp_path / "t"
     jdir.mkdir()
     tdir.mkdir()
@@ -197,19 +199,27 @@ def test_training_only_flags_are_ignored_by_the_test_stage_as_in_jax(flag, tmp_p
     assert got["nus"] == [] and len(got["test_returns"]) == 2
     _assert_close(got, want)
     assert _files(tdir / res) == _files(jdir / res)
-    with pytest.raises(NotImplementedError, match="--bf16"):
-        trun.main(BURGER + ["--test", "--bf16"] + flag, device="cpu")
-    with pytest.raises(NotImplementedError, match=flag[0]):
-        trun.main(BURGER + flag, device="cpu")
+    got_bf16, _ = _both(BURGER + ["--test", "--testepisodes", "2", "--bf16"] + flag, jdir,
+                        tdir, monkeypatch, capsys)
+    assert got_bf16 == got
+    if flag[0] == "--save-episodes":
+        trun._refuse_unported(trun.build_parser().parse_args(BURGER + flag))
+    else:
+        with pytest.raises(NotImplementedError, match=flag[0]):
+            trun.main(BURGER + flag, device="cpu")
 
 
 @pytest.mark.parametrize("argv", [["diffusion-simple", "--test"], ["laplace", "--test"],
                                   ["advection-simple", "--test"]], ids=lambda a: a[0])
 def test_test_stage_of_unported_workloads_raises(argv, tmp_path, monkeypatch):
+    """These workloads' test stages are ported (tests/test_torch_run_simple.py
+    runs them); without a checkpoint they exit as every test stage does, and
+    cmaes-burger's, which is not ported, still raises."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="--test"):
+    with pytest.raises(SystemExit, match="no checkpoint"):
         trun.main(argv, device="cpu")
-    assert list(tmp_path.iterdir()) == []
+    with pytest.raises(NotImplementedError, match="cmaes-burger"):
+        trun.main(["cmaes-burger", "--test"], device="cpu")
 
 
 def test_test_without_a_checkpoint_exits(tmp_path, monkeypatch):

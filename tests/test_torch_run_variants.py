@@ -46,10 +46,8 @@ def test_make_workload_matches_jax(argv):
     tenv, trl, ttc = trun.make_workload(trun.build_parser().parse_args(argv), device="cpu")
     assert dataclasses.asdict(tenv.cfg) == dataclasses.asdict(jenv.cfg)
     assert dataclasses.asdict(trl) == dataclasses.asdict(jrl)
-    # the episode dump is not ported: training with --save-episodes is
-    # refused by main, and make_workload leaves the field unset
-    want_tc = dict(dataclasses.asdict(jtc), save_episodes_dir=None)
-    assert dataclasses.asdict(ttc) == want_tc
+    # the episode dump's folder included
+    assert dataclasses.asdict(ttc) == dataclasses.asdict(jtc)
     assert (jtc.save_episodes_dir is not None) == ("--save-episodes" in argv)
     for f in ("name", "obs_dim", "num_agents", "act_dim", "episode_length", "action_low",
               "action_high"):

@@ -102,13 +102,22 @@ def test_two_fused_generations_of_train(envs):
     assert (abcn.launches, mlp.launches) == (abcn_before, mlp_before)
 
 
-def test_train_refuses_what_the_slice_does_not_cover(envs):
+def test_train_refuses_what_the_slice_does_not_cover(envs, tmp_path):
+    """The trainer covers every TrainerConfig field now: the episode dump
+    writes one npz a generation in both the train loop and the fused
+    generation's collection (which records the fields for it)."""
     _, tenv = envs
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttr.train(tenv, tc=ttr.TrainerConfig(save_episodes_dir="x"), verbose=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttr.build_fused_generation(tenv, ttr.default_rl_config(tenv),
-                                   ttr.TrainerConfig(save_episodes_dir="x"), 1)
+    tc = ttr.TrainerConfig(num_envs=2, max_experiences=20, save_episodes_dir=str(tmp_path / "x"),
+                           seed=3)
+    ttr.train(tenv, ttr.default_rl_config(tenv, width=8), tc=tc, verbose=False)
+    assert sorted(p.name for p in (tmp_path / "x").iterdir()) == ["episodes_gen1.npz",
+                                                                  "episodes_gen2.npz"]
+    fused = ttr.build_fused_generation(tenv, ttr.default_rl_config(tenv, width=8), tc, 1)
+    ts = tv.init_train(ttr.default_rl_config(tenv, width=8), torch.Generator().manual_seed(0),
+                       dtype=tenv.dtype, device=tenv.device)
+    rep = ttr.make_replay(tenv, ttr.default_rl_config(tenv, width=8))
+    _, _, traj, _, _, _ = fused(ts, rep, torch.Generator().manual_seed(1), 0, tenv.consts)
+    assert traj["fields"].shape[:2] == (2, tenv.episode_length) and "ektt" in traj
     # experience mode is ported: its replay is the flat ring
     rep = ttr.make_replay(tenv, ttr.default_rl_config(tenv, minibatch_mode="experience",
                                                       replay_max_experiences=64))
