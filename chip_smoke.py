@@ -7,8 +7,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
 2. build both CUDA kernels from marlpde_tpu_torch/csrc (one nvcc per source,
    started together; sm_90a), with ptxas's registers and spills of each ABCN
-   instantiation (N=32 the main path's) and of the MLP kernel, and the count
-   of tensor-core instructions (HGMMA) in the MLP library's SASS;
+   instantiation (N=32 the main path's) and of each width instantiation of
+   the MLP kernel (which spill; width 256 is [apg]'s), and the count of
+   tensor-core instructions (HGMMA) in the MLP library's SASS;
 3. [kernels] each kernel against its plain PyTorch version on the card at the
    shapes of the paths below, with CUDA-event times (median of 20 calls) of
    both and the share of the card's bound (the least time for the bytes the
@@ -25,7 +26,7 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    deterministic collection on the card against the same on the CPU;
 6. [cli] the run-918 flagship through ``python -m marlpde_tpu_torch.run``'s
    ``main`` (experience mode, korali's ledger, testing, checkpoints,
-   diagnostics) for 6 generations, then ``--resume`` for a 7th, in a fresh
+   diagnostics) for 5 generations, then ``--resume`` for a 6th, in a fresh
    temporary directory; [cli-breakdown] one generation's collection, insert
    and updates (BREAKDOWN_UPDATES of them) timed apart;
 7. [cli-w256] one generation at the CLI's default width 256;
@@ -34,14 +35,14 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 9. [cli-test] the run-918 flags with --test, then --test --best, on the
    [cli] phase's checkpoints (evaluation, the pool sweep, the uncontrolled
    comparison, makePlot's panels);
-10. [ks] the run-926 KS flags (scripts/tpu_ks_926.sh) through the CLI for 4
+10. [ks] the run-926 KS flags (scripts/tpu_ks_926.sh) through the CLI for 3
    fused generations of 16 episodes, then --test and --test --best;
    [ks-breakdown] one generation's collection, insert and updates;
 11. [ks-agree] a deterministic KS collection on the card against the same on
    the CPU, same weights;
 12. [fd] the run-927 burger-fd flags (run-vracer-burger-fd.py: N_dns 1024,
    N = NA = 256, explicit-Euler FD, MSE reward, width 32) through the CLI for
-   6 generations, then --test and --test --best; [fd-breakdown] one
+   5 generations, then --test and --test --best; [fd-breakdown] one
    generation's collection, insert and updates timed apart;
 13. [fd-agree] a deterministic burger-fd collection on the card against the
    same on the CPU, same weights;
@@ -65,16 +66,35 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    differences are float32 rounding); [simple-learns] the config of
    tests/test_rl.py's diffusion learning test.
 
+17. [apg] burger-jax --learner apg through the CLI (RUN_APG: N = NA = 32,
+   N_dns 512, width 256, 16 episodes of 500 RK3 macro-steps, 2 iterations),
+   then --test of its checkpoint, and the peak memory of one backward pass
+   with and without the per-macro-step checkpointing (APG_MEMORY_STEPS); [apg-agree] the return
+   and its gradient (B=4, 20 macro-steps) and burger_grad's Jacobians on the
+   card against the CPU, in float32 and float64;
+18. [cmaes] cmaes-burger through the CLI (N_dns 512, N 32, population 8,
+   500 macro-steps, 3 generations), and its objective on the card against
+   the CPU at three cs;
+19. [ddp] the ddp pipeline at tests/test_ddp.py::TestPipelineScale's scale
+   (N=1024 DNS of 4000 steps, n_les 128, 80 epochs, a-priori and
+   a-posteriori checks), a transfer step with frozen layers, and the card's
+   DNS against the CPU's from the same draws.
+
 The [kernels] phase also holds the MLP kernel at the [simple] shapes of all
-five presets and at obs 128/256 with widths 128/256 (WIDE_INPUTS).
+five presets, at obs 128/256 with widths 128/256 (WIDE_INPUTS) and at the
+shape of [apg]'s --test stage (APG_HEADS).  A [timing] line gives each
+phase's seconds.
 
 Launch counts are set to 0 just before each path and read just after; the
 comparisons of a kernel with its plain version are not counted.  The
 flagship Burgers paths (main, cli, cli_w256, cli_test) must launch both
-kernels; every other path (ks, ks_test, fd, fd_test, variants, simple,
-simple_test, bf16) the MLP kernel and never the ABCN kernel: their configs
-run the general per-env env on torch.fft or have no Burgers solver, as in
-the JAX package.  Standard output ends
+kernels; the paths ks, ks_test, fd, fd_test, variants, simple, simple_test,
+bf16 and apg the MLP kernel and never the ABCN kernel: their configs run the
+general per-env env on torch.fft or have no Burgers solver, as in the JAX
+package (apg launches the MLP kernel only in its --test stage: training
+differentiates the module, as JAX differentiates flax's apply); cmaes and
+ddp launch neither (no VRACER policy; their own ABCN loops on torch.fft).
+Standard output ends
 with one JSON line of kernel results (launches of the [cli] path, and of each
 path under "launches_by_path"), then the contract line {"ok": true,
 "device": {...}}.  Without a CUDA card, or without the package beside it, the
@@ -84,6 +104,7 @@ script exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -168,6 +189,10 @@ SIMPLE_HEADS = {"diffusion": ((128, 128, 128, "sigma_relative", 5.0, 3.0), (16, 
 WIDE_INPUTS = {"d256w128": ((256, 256, 128, "absolute", 0.5, 0.005), (10, 5000)),
                "d256w256": ((256, 256, 256, "absolute", 0.5, 0.005), (10, 5000)),
                "d128w256": ((128, 128, 256, "sigma_relative", 5.0, 0.01), (16, 8000))}
+# the MLP shape of [apg]'s --test stage: burger-jax's policy (obs 32, 32
+# actions, width 256, sigma_max 0.1, iex 0.01) with the sigma-relative mean,
+# acting for 8 test episodes of one agent
+APG_HEADS = {"apg": ((32, 32, 256, "sigma_relative", 0.1, 0.01), (8,))}
 # results/diffusion_oracle_r5.json (the JAX package, float32 on the CPU):
 # diffusion-simple's defaults, 64 episodes of constant actions
 ORACLE = {-2.0: (0.2499985545873642, 500.0), 0.0: (-0.0008172778179869056, 56.0)}
@@ -187,6 +212,50 @@ SIMPLE_ENV_TOL = 1e-3
 SIMPLE_CLOSED_TOL = 1e-3
 SIMPLE_AGREE_SEEDS = (2, 3, 5, 7, 11)   # of the weights' perturbation, open loop
 SIMPLE_F64_TOL = 1e-8
+# [apg]: burger-jax (run-vracer-burger-jax.py: N = NA = 32, N_dns 512, width
+# 256, RK3) through the CLI's --learner apg, 16 episodes of 500 macro-steps an
+# iteration, cut to 2 iterations by --NE; --dforce: the actions are the
+# forcing itself (the CLI's default scales d2u/dx2 by them).  With the
+# absolute mean an untrained policy's episodes blow up for most initial
+# weights (-inf returns, NaN gradients: JAX keys 42, 0, 3 of 0-3 and 42, port
+# seeds 42, 1, 2, 3 on the CPU under PyTorch 2.13, whose trunc_normal_ draws
+# other weights than other versions'), and the CLI's lr 1e-3 blows up the
+# second iteration from the one whose episodes survive, in JAX too from the
+# same weights: the reference's behaviour, checked on the CPU-drawn weights
+# of APG_BLOWN_SEED.  The sigma-relative mean starts from zero actions, the
+# uncontrolled LES, whatever the weights, and APG improves it in both
+# packages (on the CPU, scripts/learner_compare.py apg: JAX -14.0013,
+# -13.7011, -13.3070; the port -14.0012, -13.7086, -13.3249)
+RUN_APG = ("burger-jax --dforce --muparam sigma_relative --learner apg --numenvs 16 "
+           "--NE 16000 --run 81").split()
+APG_BLOWN_SEED = 42
+# the depth of [apg]'s memory measurement with and without the checkpointing:
+# the saved tensors grow with the macro-steps (at the CLI's 500, 11.1 and
+# 205.9 MiB on an H100)
+APG_MEMORY_STEPS = 100
+# [apg-agree]: the return and its gradient at B=4 over 20 macro-steps of 10
+# RK3 sub-steps (T 0.2) at burger-jax's widths, card against CPU.  float32:
+# within AGREE_FACTOR times the CPU's own float32 distance from float64 on the
+# same weights (5.3e-6 on the return, 4-7e-5 on the gradients); float64 on
+# both devices at AGREE_F64_TOL.  The Jacobians of burger_grad likewise
+APG_AGREE = dict(N_dns=512, grid_size=32, num_actions=32, dt=1e-3, T=0.2, episode_length=20,
+                 dforce=True)
+AGREE_FACTOR = 10.0
+AGREE_F64_TOL = 1e-8
+# [cmaes]: run-cmaes-burger.py's config (N_dns 512, N 32, population 8, 500
+# macro-steps of 10 ABCN sub-steps) through the CLI, cut to 3 generations;
+# the card's objective against the CPU's at CMAES_CS, within AGREE_FACTOR
+# times the CPU's float32 distance from float64 (2.3e-5 on the CPU)
+RUN_CMAES = "cmaes-burger --numgen 3".split()
+CMAES_CS = (0.0, 0.2, 0.8)
+# [ddp]: tests/test_ddp.py::TestPipelineScale at its sizes and limits, in
+# float64 as it runs, on draws from CPU generators (DDP_SEEDS: the data's,
+# the closure's) that the CPU run of the same seeds shares; the closure's
+# initial weights (trunc_normal_) and permutations differ between PyTorch
+# versions, so the card is held against the CPU of the same machine.  The
+# float32 DNS is compared over DDP_AGREE_STEPS
+DDP_SEEDS = (7, 1)
+DDP_AGREE_STEPS = 200
 
 
 def check(cond, msg):
@@ -335,9 +404,9 @@ def phase_kernels(env, dev):
               # runs (32 actions) and burger-jax (32 actions, sigma_max 0.1, iex 0.01)
               + [(R, 32, A, 256, "absolute", sigma_max, iex) for R in (16, 800)
                  for A, sigma_max, iex in VARIANT_HEADS.values()]
-              # [simple] and the wide-input shapes
+              # [simple], the wide-input shapes and [apg]'s --test
               + [(R, *head) for head, rows in list(SIMPLE_HEADS.values())
-                 + list(WIDE_INPUTS.values()) for R in rows])
+                 + list(WIDE_INPUTS.values()) + list(APG_HEADS.values()) for R in rows])
     mlp_rows = []
     for R, D, A, width, mu_param, sigma_max, iex in shapes:
         x = torch.randn(R, D, generator=g, device=dev)
@@ -378,7 +447,8 @@ def phase_kernels(env, dev):
     var = {(R, A, iex): by_shape[R, 32, A, 256, "absolute", sigma_max, iex]
            for R in (16, 800) for A, sigma_max, iex in VARIANT_HEADS.values()}
     new_shapes = {f"{tag}_r{R}": by_shape[(R, *head)] for tag, (head, rows) in
-                  list(SIMPLE_HEADS.items()) + list(WIDE_INPUTS.items()) for R in rows}
+                  list(SIMPLE_HEADS.items()) + list(WIDE_INPUTS.items())
+                  + list(APG_HEADS.items()) for R in rows}
     results.append(dict(name="mlp_forward", route="cuda",
                         source="marlpde_tpu_torch/csrc/mlp.cu",
                         replaces="marlpde_tpu/ops/mlp_pallas.py:71",
@@ -585,29 +655,38 @@ def _check_state_on_card(tag, ts, rep):
           f"{tag}: train state or replay not on the card")
 
 
+def _check_best(tag, res, hist):
+    """best/ holds the policy of the best test return, from a generation
+    that ran updates, so that --test --best reads a trained policy."""
+    best = os.path.join(res, "best")
+    check(all(os.path.exists(os.path.join(best, f)) for f in ("latest.pt", "best.json")),
+          f"{tag}: best/ checkpoint missing")
+    with open(os.path.join(best, "best.json")) as f:
+        best_json = json.load(f)
+    check(best_json["test_return"] == max(hist["test_return"])
+          and hist["updates"][best_json["gen"] - 1] > 0, f"{tag} best.json {best_json}")
+    return best_json
+
+
 def phase_cli(workdir):
-    """The run-918 flagship through the CLI: 6 generations, then --resume."""
+    """The run-918 flagship through the CLI: 5 generations tested after the
+    fifth, the first with updates, then --resume for a sixth."""
     import numpy as np
     import torch
 
-    ts, rep, hist, rows, launches = _cli(RUN_918 + ["--NE", "30000", "--testfreq", "2"], "cli")
+    ts, rep, hist, rows, launches = _cli(RUN_918 + ["--NE", "25000", "--testfreq", "5"], "cli")
     _check_generations("cli", hist, rows, 1)
     # korali ledger: rstart 20000, expperu 0.5, cap 2500, 5000 live steps a generation
-    check(hist["updates"] == [0, 0, 0, 0, 2500, 2500], f"cli updates {hist['updates']}")
-    check(ts.n_updates == 5000, f"cli n_updates {ts.n_updates}")
+    check(hist["updates"] == [0, 0, 0, 0, 2500], f"cli updates {hist['updates']}")
+    check(ts.n_updates == 2500, f"cli n_updates {ts.n_updates}")
     check(hist["blowups"][0] == 0, f"cli generation 1 had {hist['blowups'][0]} blowups")
-    check(len(hist["test_return"]) == 3 and np.isfinite(hist["test_return"]).all(),
+    check(len(hist["test_return"]) == 1 and np.isfinite(hist["test_return"]).all(),
           f"cli test returns {hist['test_return']}")
     res = os.path.join(workdir, "_result_burger-marl_0")
-    best = os.path.join(res, "best")
-    check(all(os.path.exists(os.path.join(best, f)) for f in ("latest.pt", "best.json")),
-          "cli: best/ checkpoint missing")
-    with open(os.path.join(best, "best.json")) as f:
-        best_json = json.load(f)
-    check(best_json["test_return"] == max(hist["test_return"]), f"cli best.json {best_json}")
+    best_json = _check_best("cli", res, hist)
     diag_keys = {"v0_scaled", "return_scaled", "rew_scale", "mu_drift_rms",
                  "mu_from_init_rms", "mu_rms", "sigma_probe", "replay_occupancy"}
-    check(len(hist["diag"]) == 6 and all(set(d) == diag_keys for d in hist["diag"]),
+    check(len(hist["diag"]) == 5 and all(set(d) == diag_keys for d in hist["diag"]),
           "cli: diag rows")
     check(all(os.path.exists(os.path.join(res, f))
               for f in ("latest.pt", "history.json", "meta.npz")), "cli: checkpoint missing")
@@ -617,11 +696,11 @@ def phase_cli(workdir):
     print(f"[cli] last update metrics: {json.dumps(hist['metrics'][-1])}")
 
     ts, rep, hist, rows2, launches2 = _cli(
-        RUN_918 + ["--NE", "35000", "--testfreq", "2", "--resume"], "cli-resume")
-    _check_generations("cli-resume", hist, rows2, 7)
-    check(hist["gen"] == list(range(1, 8)) and hist["updates"][6] == 2500,
+        RUN_918 + ["--NE", "30000", "--testfreq", "2", "--resume"], "cli-resume")
+    _check_generations("cli-resume", hist, rows2, 6)
+    check(hist["gen"] == list(range(1, 7)) and hist["updates"][5] == 2500,
           f"cli resume: gens {hist['gen']} updates {hist['updates']}")
-    check(ts.n_updates == 7500, f"cli resume n_updates {ts.n_updates}")
+    check(ts.n_updates == 5000, f"cli resume n_updates {ts.n_updates}")
     _check_state_on_card("cli-resume", ts, rep)
     total = {k: launches[k] + launches2[k] for k in launches}
     return ts, rep, total
@@ -780,8 +859,9 @@ def phase_cli_test(workdir):
 
 
 def phase_ks(workdir):
-    """The run-926 KS flags through the CLI, cut to 4 generations of 16
-    episodes (--NE 32000) with testing every 2, then --test and --test --best
+    """The run-926 KS flags through the CLI, cut to 3 generations of 16
+    episodes (--NE 24000) tested after the third, the first with updates,
+    then --test and --test --best
     (scripts/tpu_ks_926.sh)."""
     import numpy as np
     import torch
@@ -789,7 +869,7 @@ def phase_ks(workdir):
 
     pools, restore = _timed_pools(ks_env)
     try:
-        ts, rep, hist, rows, launches = _cli(RUN_926 + ["--NE", "32000", "--testfreq", "2"],
+        ts, rep, hist, rows, launches = _cli(RUN_926 + ["--NE", "24000", "--testfreq", "3"],
                                              "ks")
     finally:
         restore()
@@ -806,11 +886,11 @@ def phase_ks(workdir):
     # 16 envs x 500 steps x reuse 512 (mbsize 256 / expperu 0.5) / 256) = 1000;
     # _updates_started waits for 20000 experiences (rstart 20000 x 500 / 500):
     # 8000, 16000, 24000 after generations 1-3
-    check(hist["updates"] == [0, 0, 1000, 1000], f"ks updates {hist['updates']}")
-    check(ts.n_updates == 2000, f"ks n_updates {ts.n_updates}")
-    check(hist["blowups"] == [0, 0, 0, 0] and _finite(hist["mean_return"]),
+    check(hist["updates"] == [0, 0, 1000], f"ks updates {hist['updates']}")
+    check(ts.n_updates == 1000, f"ks n_updates {ts.n_updates}")
+    check(hist["blowups"] == [0, 0, 0] and _finite(hist["mean_return"]),
           f"ks blowups {hist['blowups']}, returns {hist['mean_return']}")
-    check(len(hist["test_return"]) == 2 and _finite(hist["test_return"]),
+    check(len(hist["test_return"]) == 1 and _finite(hist["test_return"]),
           f"ks test returns {hist['test_return']}")
     check(ts.net.width == 256 and ts.net.mu_param == "sigma_relative"
           and ts.net.obs_dim == 32 and ts.net.act_dim == 16, "ks: the learner's shape")
@@ -822,6 +902,7 @@ def phase_ks(workdir):
           f"metrics {json.dumps(hist['metrics'][-1])}")
 
     res = os.path.join(workdir, "_result_ks_926")
+    _check_best("ks", res, hist)
     test_launches = dict(abcn_macro_step=0, mlp_forward=0)
     for extra in ([], ["--best"]):
         tag = "ks-test" + ("-best" if extra else "")
@@ -899,14 +980,15 @@ def _timed_pools(module):
 
 
 def phase_fd(workdir):
-    """The run-927 burger-fd flags through the CLI, cut to 6 generations of 10
-    episodes (--NE 30000) with testing every 2, then --test and --test --best."""
+    """The run-927 burger-fd flags through the CLI, cut to 5 generations of 10
+    episodes (--NE 25000) tested after the fifth, the first with updates, then
+    --test and --test --best."""
     import numpy as np
     from marlpde_tpu_torch.envs import burger_env
 
     pools, restore = _timed_pools(burger_env)
     try:
-        ts, rep, hist, rows, launches = _cli(RUN_927 + ["--NE", "30000", "--testfreq", "2"],
+        ts, rep, hist, rows, launches = _cli(RUN_927 + ["--NE", "25000", "--testfreq", "5"],
                                              "fd")
     finally:
         restore()
@@ -917,10 +999,10 @@ def phase_fd(workdir):
           f"{build_s:.2f} s")
     _check_generations("fd", hist, rows, 1, abcn=False)
     # korali ledger: rstart 20000, expperu 0.5, cap 2500, 5000 live steps a generation
-    check(hist["updates"] == [0, 0, 0, 0, 2500, 2500], f"fd updates {hist['updates']}")
-    check(hist["blowups"] == [0] * 6 and hist["mean_ep_len"] == [500.0] * 6,
+    check(hist["updates"] == [0, 0, 0, 0, 2500], f"fd updates {hist['updates']}")
+    check(hist["blowups"] == [0] * 5 and hist["mean_ep_len"] == [500.0] * 5,
           f"fd blowups {hist['blowups']}, episode lengths {hist['mean_ep_len']}")
-    check(len(hist["test_return"]) == 3 and _finite(hist["test_return"]),
+    check(len(hist["test_return"]) == 1 and _finite(hist["test_return"]),
           f"fd test returns {hist['test_return']}")
     check(ts.net.width == 32 and ts.net.obs_dim == 256 and ts.net.act_dim == 256,
           "fd: the learner's shape")
@@ -934,6 +1016,7 @@ def phase_fd(workdir):
           f"{json.dumps(hist['metrics'][-1])}")
 
     res = os.path.join(workdir, "_result_burger-fd_927")
+    _check_best("fd", res, hist)
     test_launches = dict(abcn_macro_step=0, mlp_forward=0)
     for extra in ([], ["--best"]):
         tag = "fd-test" + ("-best" if extra else "")
@@ -1441,19 +1524,338 @@ def phase_bf16():
     return launches
 
 
-def ptxas_by_instantiation(log):
-    """{log2 N: (registers, spill store bytes, spill load bytes)} of each
-    instantiation of the ABCN kernel template in ptxas's -v report."""
+def _apg_memory(env, rl_cfg, ts, checkpoint):
+    """Peak device bytes of one episode_return and its backward pass at the
+    env's batch of 16 over APG_MEMORY_STEPS macro-steps, above what was
+    allocated before, its seconds and the return."""
+    import torch
+    from marlpde_tpu_torch.rl import apg
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ts.net.zero_grad(set_to_none=True)
+    ret = apg.episode_return(dataclasses.replace(env, episode_length=APG_MEMORY_STEPS), rl_cfg,
+                             ts, env.consts, torch.Generator(device=env.device), 0, 16,
+                             checkpoint=checkpoint)
+    ret.backward()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    ts.net.zero_grad(set_to_none=True)
+    return torch.cuda.max_memory_allocated() - base, seconds, ret.item()
+
+
+def phase_apg():
+    """burger-jax --learner apg through the CLI (RUN_APG): 2 iterations of
+    analytic policy gradient through the differentiable RK3 rollout, the
+    policy forward through the module (no kernel); then --test of its
+    checkpoint, whose acting goes through the MLP kernel.  Then one return
+    and its backward pass with and without the per-macro-step checkpointing,
+    their peak memory."""
+    import numpy as np
+    import torch
+    from marlpde_tpu_torch import run
+    from marlpde_tpu_torch.rl import apg, vracer
+
+    (ts, rep, hist), line, seconds, launches_train = _main_json(RUN_APG, "apg")
+    print(f"[apg] 2 iterations of 16 episodes x 500 macro-steps x 10 RK3 sub-steps: "
+          f"{seconds:.3f} s ({seconds / 2:.3f} s an iteration, pool and build included); "
+          f"returns {hist['mean_return']}, best {hist['best_return'][-1]}; launches "
+          f"{launches_train}")
+    check(line == {"workload": "burger-jax", "learner": "apg",
+                   "final_mean_return": hist["mean_return"][-1], "iterations": 2},
+          f"[apg] JSON line {line}")
+    check(rep is None and _finite(hist["mean_return"]), f"[apg] returns {hist['mean_return']}")
+    check(launches_train == dict(abcn_macro_step=0, mlp_forward=0),
+          f"[apg] training launched a kernel: {launches_train}")
+    # the same generator draws the same initial weights as train_apg's
+    args = run.build_parser().parse_args(RUN_APG)
+    env, rl_cfg, _ = run.make_workload(args)
+    ts0 = vracer.init_train(rl_cfg, torch.Generator(device=env.device).manual_seed(args.seed),
+                            device=env.device)
+    # the return improved, so the incumbent is a later iterate: the
+    # checkpoint's weights moved from the initial ones
+    best_it = int(np.argmax(hist["mean_return"]))
+    moved = [not torch.equal(a, b) for a, b in zip(ts.net.parameters(), ts0.net.parameters())]
+    print(f"[apg] incumbent from iteration {best_it}; parameters that differ from the initial "
+          f"ones: {sum(moved)} of {len(moved)}")
+    check(best_it > 0 and hist["best_return"][-1] == hist["mean_return"][best_it] and any(moved),
+          f"[apg] incumbent {best_it}, moved {moved}, returns {hist['mean_return']}")
+    absolute = dataclasses.replace(rl_cfg, mu_param="absolute")
+    state = vracer.init_train(absolute, torch.Generator().manual_seed(APG_BLOWN_SEED)).net
+    blown = vracer.init_train(absolute, torch.Generator(device=env.device), device=env.device)
+    blown.net.load_state_dict(state.state_dict())
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ret = apg.episode_return(env, absolute, blown, env.consts,
+                                 torch.Generator(device=env.device), 0, 16).item()
+    print(f"[apg] an untrained absolute-mean policy (the CPU's seed-{APG_BLOWN_SEED} weights): "
+          f"return {ret} ({time.perf_counter() - t0:.3f} s; its episodes blow up, as most "
+          f"untrained absolute-mean policies' do on the CPU and in JAX)")
+    check(ret == -np.inf, f"[apg] seed {APG_BLOWN_SEED}'s untrained return {ret}")
+
+    summary, tline, t_seconds, launches_test = _main_json(
+        RUN_APG[:4] + ["--test", "--run", "81"], "apg-test")
+    print(f"[apg] --test of the checkpoint: {t_seconds:.3f} s, mean return "
+          f"{summary['test_mean_return']:.6g}; launches {launches_test}")
+    check(_finite(summary["test_returns"]) and len(summary["test_returns"]) == 8,
+          f"[apg] --test summary {summary}")
+    check(launches_test["mlp_forward"] > 0 and launches_test["abcn_macro_step"] == 0,
+          f"[apg] --test launches {launches_test}")
+
+    mem = {ck: _apg_memory(env, rl_cfg, ts0, ck) for ck in (True, False)}
+    print(f"[apg] one return and its backward pass at 16 episodes x {APG_MEMORY_STEPS} "
+          f"macro-steps, peak device memory above the baseline: " + "; ".join(
+              f"{'with' if ck else 'without'} checkpointing {b / 2**20:.1f} MiB in {t:.3f} s "
+              f"(return {r:.6g})" for ck, (b, t, r) in mem.items()))
+    check(mem[True][2] == mem[False][2], f"[apg] the two passes' returns differ: {mem}")
+    return {k: launches_train[k] + launches_test[k] for k in launches_train}
+
+
+def _apg_agree_grads(d, dtype, net_state):
+    """episode_return at APG_AGREE on device ``d`` in ``dtype`` from the
+    weights ``net_state``: (return, {name: gradient as float64 on the CPU})."""
+    import torch
+    from marlpde_tpu_torch.envs import registry
+    from marlpde_tpu_torch.rl import apg, vracer
+    from marlpde_tpu_torch.train import trainer
+
+    env = registry.make_env("burger-jax", dtype=dtype, device=d, **APG_AGREE)
+    rl_cfg = trainer.default_rl_config(env, width=256, init_noise=0.01)
+    ts = vracer.init_train(rl_cfg, torch.Generator(device=d).manual_seed(0), dtype=dtype,
+                           device=d)
+    ts.net.load_state_dict(net_state)
+    ret = apg.episode_return(env, rl_cfg, ts, env.consts, torch.Generator(device=d), 0, 4)
+    ret.backward()
+    return ret.item(), {n: p.grad.detach().double().cpu() for n, p in ts.net.named_parameters()
+                        if p.grad is not None}
+
+
+def _jacobians(d, dtype):
+    """burger_grad's step_with_grad (10 sub-steps) and episode_jacobian (5
+    macro-steps of 10) at burger-jax's N = NA = 32, from numpy-made inputs."""
+    import numpy as np
+    import torch
+    from marlpde_tpu_torch.envs import burger_env
+    from marlpde_tpu_torch.solvers import burger_grad
+
+    cfg = burger_env.BurgerEnvConfig(**APG_AGREE, scheme="rk3")
+    rng = np.random.default_rng(0)
+    x = np.linspace(0, 2 * np.pi, 32, endpoint=False)
+    t = lambda a: torch.tensor(a, dtype=dtype, device=d)
+    u = t(np.sin(x) + 0.1 * rng.standard_normal(32))
+    _, _, g = burger_grad.step_with_grad(cfg.les_solver, burger_env.action_basis(cfg), u,
+                                         torch.fft.fft(u), t(np.zeros((32, 32))),
+                                         t(0.1 * rng.standard_normal(32)), 10)
+    jac = burger_grad.episode_jacobian(cfg.les_solver, burger_env.action_basis(cfg), u,
+                                       t(0.1 * rng.standard_normal((5, 32))), 10)
+    return {"step_with_grad": g.double().cpu(), "episode_jacobian": jac.double().cpu()}
+
+
+def _rel(a, b):
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def phase_apg_agree(dev):
+    """The APG return and every parameter's gradient, and burger_grad's two
+    Jacobians, on the card against the CPU: float32 within AGREE_FACTOR times
+    the CPU's own float32 distance from float64, float64 at AGREE_F64_TOL."""
+    import torch
+    from marlpde_tpu_torch.envs import registry
+    from marlpde_tpu_torch.rl import vracer
+    from marlpde_tpu_torch.train import trainer
+
+    env = registry.make_env("burger-jax", device="cpu", **APG_AGREE)
+    rl_cfg = trainer.default_rl_config(env, width=256, init_noise=0.01)
+    state = vracer.init_train(rl_cfg, torch.Generator().manual_seed(3)).net.state_dict()
+    t0 = time.perf_counter()
+    runs = {(d, dt): _apg_agree_grads(d, dt, state)
+            for d in ("cpu", dev) for dt in (torch.float32, torch.float64)}
+    jacs = {(d, dt): _jacobians(d, dt) for d in ("cpu", dev)
+            for dt in (torch.float32, torch.float64)}
+    seconds = time.perf_counter() - t0
+
+    def dist(a, b):
+        (ra, ga), (rb, gb) = runs[a], runs[b]
+        return {"return": abs(ra - rb) / abs(rb), **{n: _rel(ga[n], gb[n]) for n in gb}}
+
+    f32, f64 = torch.float32, torch.float64
+    for what, card, witness, f64_err in (
+            ("episode_return and its gradients", dist((dev, f32), ("cpu", f32)),
+             dist(("cpu", f32), ("cpu", f64)), dist((dev, f64), ("cpu", f64))),
+            ("burger_grad Jacobians",
+             {k: _rel(jacs[(dev, f32)][k], jacs[("cpu", f32)][k]) for k in jacs[("cpu", f32)]},
+             {k: _rel(jacs[("cpu", f32)][k], jacs[("cpu", f64)][k]) for k in jacs[("cpu", f32)]},
+             {k: _rel(jacs[(dev, f64)][k], jacs[("cpu", f64)][k]) for k in jacs[("cpu", f32)]})):
+        print(f"[apg-agree] {what}, max error over the largest |value|: card against CPU in "
+              f"float32 {json.dumps({k: float(f'{v:.3e}') for k, v in card.items()})}; the CPU's "
+              f"float32 against float64 (the witness) "
+              f"{json.dumps({k: float(f'{v:.3e}') for k, v in witness.items()})}; card against "
+              f"CPU in float64 {json.dumps({k: float(f'{v:.3e}') for k, v in f64_err.items()})}")
+        check(all(card[k] <= AGREE_FACTOR * max(witness[k], 1e-7) for k in card),
+              f"[apg-agree] {what}: the card is farther from the CPU than {AGREE_FACTOR:g}x "
+              f"the CPU's float32 rounding")
+        check(max(f64_err.values()) <= AGREE_F64_TOL, f"[apg-agree] {what} in float64: {f64_err}")
+    print(f"[apg-agree] B=4, 20 macro-steps, width 256; returns: card {runs[(dev, f32)][0]:.7g},"
+          f" CPU {runs[('cpu', f32)][0]:.7g} (float32); {seconds:.3f} s")
+
+
+def phase_cmaes(dev):
+    """cmaes-burger through the CLI (RUN_CMAES), then the card's objective
+    at CMAES_CS against the CPU's."""
+    import numpy as np
+    import torch
+    from marlpde_tpu_torch.rl import cmaes
+
+    out, line, seconds, launches = _main_json(RUN_CMAES, "cmaes")
+    print(f"[cmaes] 3 generations of 8 episodes x 500 macro-steps x 10 ABCN sub-steps: "
+          f"{seconds:.3f} s ({seconds / 3:.3f} s a generation, the pool included); {line}; "
+          f"launches {launches}")
+    check(out == line and list(line) == ["workload", "best_cs", "best_objective", "generations"]
+          and line["generations"] == 3 and 0.0 <= line["best_cs"] <= 1.0
+          and np.isfinite(line["best_objective"]), f"[cmaes] JSON line {line}")
+    xs = np.asarray(CMAES_CS)[:, None]
+    costs, secs = {}, {}
+    for d, dt in ((dev, torch.float32), ("cpu", torch.float32), ("cpu", torch.float64)):
+        f = cmaes.make_burger_cs_objective(device=d, dtype=dt)
+        t0 = time.perf_counter()
+        costs[(d, dt)] = f(xs)
+        secs[(d, dt)] = time.perf_counter() - t0
+    card = costs[(dev, torch.float32)]
+    cpu = costs[("cpu", torch.float32)]
+    err = float(np.abs(card - cpu).max() / np.abs(cpu).max())
+    witness = float(np.abs(cpu - costs[("cpu", torch.float64)]).max() / np.abs(cpu).max())
+    print(f"[cmaes] objective at cs {CMAES_CS}: card {card.tolist()} ({secs[(dev, torch.float32)]:.3f}"
+          f" s), CPU {cpu.tolist()} ({secs[('cpu', torch.float32)]:.3f} s); max error over the "
+          f"largest |cost| {err:.3e}, the CPU's float32 against float64 {witness:.3e} "
+          f"(limit {AGREE_FACTOR:g}x)")
+    check(np.isfinite(card).all() and err <= AGREE_FACTOR * max(witness, 1e-7),
+          f"[cmaes] the card's objective {card} against the CPU's {cpu}")
+    return launches
+
+
+def phase_ddp(dev):
+    """tests/test_ddp.py::TestPipelineScale on the card: the N=1024
+    stochastic DNS (4000 steps), the filter to n_les=128, the closure trained
+    for 80 epochs at batch 64, its a-priori score against static
+    Smagorinsky's, the a-posteriori rollout from frame 190; then a transfer
+    step (Dense_0-5 frozen), and the card against this machine's CPU from the
+    same draws, net and permutations: the DNS, u_bar and PI over all 4000
+    steps and the closure's weights after 1 and 80 epochs (float64), and the
+    DNS over DDP_AGREE_STEPS in float32.  Returns the path's kernel launches."""
+    import copy
+
+    import numpy as np
+    import torch
+    from marlpde_tpu_torch.ddp import pipeline
+    from marlpde_tpu_torch.kernels import abcn, mlp
+    from marlpde_tpu_torch.solvers import closures
+
+    f64 = torch.float64
+    cfg = pipeline.DdpConfig()
+    # the draws generate_dns and train_closure make from these seeds on the CPU
+    g = torch.Generator().manual_seed(DDP_SEEDS[0])
+    phase = torch.randn((), generator=g, dtype=f64) * 2.0 * np.pi
+    draws = torch.randn((4000 // cfg.s, 2, 3), generator=g, dtype=f64)
+    x = torch.as_tensor(np.linspace(0.0, cfg.L, cfg.N, endpoint=False), dtype=f64)
+    u0 = torch.sin(2.0 * np.pi * 2.0 * x / cfg.L + phase)
+    g = torch.Generator().manual_seed(DDP_SEEDS[1])
+    net_cpu = pipeline.ClosureNet(cfg.n_les, n_out=cfg.n_les, dtype=f64, generator=g)
+    net = copy.deepcopy(net_cpu).to(dev)
+    perms = [torch.randperm(150, generator=g) for _ in range(80)]
+
+    abcn.launches = 0
+    mlp.launches = 0
+    times = {}
+    t0 = time.perf_counter()
+    U, F = pipeline.generate_dns(cfg, 4000, u0=u0, draws=draws, dtype=f64, device=dev)
+    torch.cuda.synchronize()
+    times["dns"] = time.perf_counter() - t0
+    check(U.shape == (4001, 1024) and U.is_cuda and bool(torch.isfinite(U).all()),
+          f"[ddp] DNS {tuple(U.shape)}")
+    t0 = time.perf_counter()
+    u_bar, pi, f_bar = pipeline.calc_bar(U[::cfg.s], F[::cfg.s], cfg.n_les, cfg.L)
+    tr, te = slice(0, 150), slice(150, 200)
+    model = pipeline.train_closure(u_bar[tr], pi[tr], epochs=80, batch_size=64, net=net,
+                                   perms=perms)
+    torch.cuda.synchronize()
+    times["filter+train"] = time.perf_counter() - t0
+    ev = pipeline.apriori_eval(model, u_bar[te], pi[te])
+    smag = closures.ssm_forcing(u_bar[te], cfg.L / cfg.n_les, cfg.n_les).cpu().numpy()
+    corr_smag = float(np.corrcoef(smag.ravel(), pi[te].cpu().numpy().ravel())[0, 1])
+    t0 = time.perf_counter()
+    start = 190
+    n_roll = len(f_bar) - start - 1
+    uu = pipeline.aposteriori_rollout(model, cfg, u_bar[start], u_bar[start - 1], f_bar[start:],
+                                      n_roll)
+    torch.cuda.synchronize()
+    times["rollout"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mask = pipeline.transfer_mask(model.net)
+    m2 = pipeline.train_closure(u_bar[te], pi[te], torch.Generator(device=dev).manual_seed(2),
+                                epochs=5, batch_size=25, net=model.net, trainable_mask=mask)
+    torch.cuda.synchronize()
+    times["transfer"] = time.perf_counter() - t0
+    launches = dict(abcn_macro_step=abcn.launches, mlp_forward=mlp.launches)
+    same = [torch.equal(a.weight, b.weight) and torch.equal(a.bias, b.bias)
+            for a, b in zip(model.net.dense, m2.net.dense)]
+    print(f"[ddp] N=1024 DNS 4000 steps, n_les=128, 80 epochs at batch 64 (float64): a-priori "
+          f"correlation {ev['correlation']:.6f} (mse {ev['mse']:.6g}; limit 0.45 and above "
+          f"static Smagorinsky's |{corr_smag:.6f}|); rollout of {n_roll} LES steps from frame "
+          f"{start}: finite {bool(torch.isfinite(uu).all())}, max |u| {uu.abs().max().item():.6g}"
+          f" (limit 50); transfer step (Dense_0-5 frozen) leaves layers unchanged: {same}; "
+          f"seconds {json.dumps({k: round(v, 3) for k, v in times.items()})}; launches {launches}")
+    check(ev["correlation"] > 0.45 and ev["correlation"] > abs(corr_smag),
+          f"[ddp] a-priori correlation {ev}, static Smagorinsky {corr_smag}")
+    check(uu.shape == (n_roll + 1, 128) and bool(torch.isfinite(uu).all())
+          and uu.abs().max().item() < 50.0, "[ddp] a-posteriori rollout")
+    check(same == [True] * 6 + [False] * 2, f"[ddp] transfer step: layers unchanged {same}")
+
+    t0 = time.perf_counter()
+    U_c, F_c = pipeline.generate_dns(cfg, 4000, u0=u0, draws=draws, dtype=f64, device="cpu")
+    ub_c, pi_c, _ = pipeline.calc_bar(U_c[::cfg.s], F_c[::cfg.s], cfg.n_les, cfg.L)
+    one = [pipeline.train_closure(u[tr], p[tr], epochs=1, batch_size=64, net=n, perms=perms[:1])
+           for u, p, n in ((u_bar, pi, net), (ub_c, pi_c, net_cpu))]
+    model_c = pipeline.train_closure(ub_c[tr], pi_c[tr], epochs=80, batch_size=64, net=net_cpu,
+                                     perms=perms)
+    ev_c = pipeline.apriori_eval(model_c, ub_c[te], pi_c[te])
+    times["cpu"] = time.perf_counter() - t0
+
+    def flat(m):
+        return torch.cat([p.detach().flatten().cpu() for p in m.net.parameters()])
+
+    errs = {"U": _rel(U.cpu(), U_c), "u_bar": _rel(u_bar.cpu(), ub_c), "pi": _rel(pi.cpu(), pi_c),
+            "weights_epoch1": _rel(flat(one[0]), flat(one[1])),
+            "weights_epoch80": _rel(flat(model), flat(model_c)),
+            "correlation": abs(ev["correlation"] - ev_c["correlation"])}
+    runs = [pipeline.generate_dns(cfg, DDP_AGREE_STEPS, u0=u0, draws=draws[:10],
+                                  dtype=torch.float32, device=d)[0].double().cpu()
+            for d in (dev, "cpu")]
+    errs["U_float32"] = _rel(*runs)
+    print(f"[ddp] card against this machine's CPU from the same draws, net and permutations "
+          f"(max error over the largest value; float64 but U_float32, over "
+          f"{DDP_AGREE_STEPS} steps): {json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})}"
+          f"; the CPU's correlation {ev_c['correlation']:.6f}, {times['cpu']:.3f} s")
+    check(max(v for k, v in errs.items() if k != "U_float32") <= AGREE_F64_TOL
+          and errs["U_float32"] <= 1e-4, f"[ddp] the card against the CPU: {errs}")
+    return launches
+
+
+def ptxas_by_instantiation(log, kernel, want):
+    """{template argument: (registers, spill store bytes, spill load bytes)}
+    of each instantiation of the kernel template ``kernel`` in ptxas's -v
+    report; ``want`` lists the template arguments that must be there."""
     import re
     out = {}
     for block in log.split("Compiling entry function")[1:]:
-        n = re.search(r"abcn_macro_step_kernelILi(\d+)E", block)
+        n = re.search(kernel + r"ILi(\d+)E", block)
         regs = re.search(r"Used (\d+) registers", block)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
         if n and regs and spill:
             out[int(n.group(1))] = (int(regs.group(1)), int(spill.group(1)),
                                     int(spill.group(2)))
-    check(sorted(out) == list(range(11)), f"ptxas report of abcn: {sorted(out)}")
+    check(sorted(out) == list(want), f"ptxas report of {kernel}: {sorted(out)}")
     return out
 
 
@@ -1481,13 +1883,20 @@ def main() -> int:
     build.load("mlp")
     print(f"[build] abcn.cu and mlp.cu built (in parallel) and loaded in "
           f"{time.perf_counter() - t0:.2f} s")
-    for name, log in build.build_logs.items():
-        if name == "abcn":
-            continue
-        regs = [ln.strip() for ln in log.splitlines()
-                if "registers" in ln or "spill" in ln or "Performance Loss" in ln]
-        print(f"[build] {name}: {' | '.join(regs)}")
-    abcn_ptxas = ptxas_by_instantiation(build.build_logs["abcn"])
+    mlp_ptxas = ptxas_by_instantiation(build.build_logs["mlp"], "mlp_forward_kernel",
+                                       range(32, 257, 32))
+    print("[build] mlp: " + ", ".join(
+        f"W={w}: {r} registers, {st}/{ld} bytes spill stores/loads"
+        for w, (r, st, ld) in sorted(mlp_ptxas.items())))
+    spilling = [w for w, (_, st, ld) in sorted(mlp_ptxas.items()) if st or ld]
+    print(f"[build] mlp widths that spill: {spilling}; width 256 (burger-jax's, run by the "
+          f"[apg] --test stage) {'spills' if 256 in spilling else 'does not spill'}")
+    warnings = [ln.strip() for ln in build.build_logs["mlp"].splitlines()
+                if "warning" in ln or "Performance Loss" in ln]
+    if warnings:
+        print(f"[build] mlp ptxas warnings: {' | '.join(warnings)}")
+    abcn_ptxas = ptxas_by_instantiation(build.build_logs["abcn"], "abcn_macro_step_kernel",
+                                        range(11))
     print("[build] abcn: " + ", ".join(
         f"N={1 << n}: {r} registers, {st}/{ld} bytes spill stores/loads"
         for n, (r, st, ld) in sorted(abcn_ptxas.items())))
@@ -1507,58 +1916,103 @@ def main() -> int:
     print(f"[setup] flagship env (host DNS pool {tuple(env.consts.uu.shape)}) in "
           f"{time.perf_counter() - t0:.2f} s; obs_dim {env.obs_dim}")
 
+    marks = [("setup", time.perf_counter())]
+
+    def mark(name):
+        marks.append((name, time.perf_counter()))
+
     kernels = phase_kernels(env, dev)
+    mark("kernels")
     ts, rep, rl_cfg, launches_main = phase_main_path(env)
+    mark("main")
     phase_breakdown(env, ts, rep, rl_cfg)
+    mark("breakdown")
     phase_small_agreement(dev)
+    mark("small")
     del ts, rep
     here = os.getcwd()
     with tempfile.TemporaryDirectory() as workdir:
         os.chdir(workdir)
         try:
             ts, rep, launches_cli = phase_cli(workdir)
+            mark("cli")
             phase_cli_breakdown("cli-breakdown", RUN_918, ts, rep, "10 envs x 500 macro-steps",
                                 2500)
+            mark("cli-breakdown")
             launches_cli_test = phase_cli_test(workdir)
+            mark("cli-test")
             launches_w256 = phase_cli_w256()
+            mark("cli-w256")
             del ts, rep
             ts, rep, gen_s, launches_ks, launches_ks_test = phase_ks(workdir)
+            mark("ks")
             phase_cli_breakdown("ks-breakdown", RUN_926, ts, rep,
                                 "16 envs x 500 macro-steps x 4 ETDRK4 sub-steps", 1000, gen_s)
+            mark("ks-breakdown")
             del ts, rep
             ts, rep, gen_s, launches_fd, launches_fd_test = phase_fd(workdir)
+            mark("fd")
             phase_cli_breakdown("fd-breakdown", RUN_927, ts, rep,
                                 "10 envs x 500 macro-steps x 10 FD sub-steps", 2500, gen_s)
+            mark("fd-breakdown")
             del ts, rep
             launches_variants = phase_variants()
+            mark("variants")
             launches_simple, launches_simple_test = phase_simple(workdir)
+            mark("simple")
             launches_bf16 = phase_bf16()
+            mark("bf16")
         finally:
             os.chdir(here)
     phase_fast_off(dev)
+    mark("fast-off")
     phase_ks_agree(dev)
+    mark("ks-agree")
     phase_fd_agree(dev)
+    mark("fd-agree")
     phase_simple_oracle(dev)
+    mark("simple-oracle")
     phase_simple_agree(dev)
+    mark("simple-agree")
     phase_simple_learns(dev)
+    mark("simple-learns")
+    with tempfile.TemporaryDirectory() as workdir:
+        os.chdir(workdir)
+        try:
+            launches_apg = phase_apg()
+            mark("apg")
+        finally:
+            os.chdir(here)
+    phase_apg_agree(dev)
+    mark("apg-agree")
+    launches_cmaes = phase_cmaes(dev)
+    mark("cmaes")
+    launches_ddp = phase_ddp(dev)
+    mark("ddp")
     by_path = dict(main=launches_main, cli=launches_cli, cli_w256=launches_w256,
                    cli_test=launches_cli_test, ks=launches_ks, ks_test=launches_ks_test,
                    fd=launches_fd, fd_test=launches_fd_test, variants=launches_variants,
                    simple=launches_simple, simple_test=launches_simple_test,
-                   bf16=launches_bf16)
+                   bf16=launches_bf16, apg=launches_apg, cmaes=launches_cmaes,
+                   ddp=launches_ddp)
     # the flagship Burgers paths run both kernels; KS has its own solver, the
     # other Burgers configs run the general per-env env (torch.fft), and the
     # diffusion, advection and Laplace envs have no Burgers solver: the MLP
-    # kernel only
+    # kernel only.  APG differentiates the module and acts through the kernel
+    # in its --test stage; CMA-ES and the ddp pipeline have no VRACER policy
+    # and run their own ABCN loops on torch.fft: neither kernel
     burgers = ("main", "cli", "cli_w256", "cli_test")
+    no_policy = ("cmaes", "ddp")
     for k in kernels:
         k["launches"] = launches_cli[k["name"]]
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
-        want = (lambda p, n: n > 0) if k["name"] == "mlp_forward" else (
+        want = (lambda p, n: (n > 0) != (p in no_policy)) if k["name"] == "mlp_forward" else (
             lambda p, n: (n > 0) == (p in burgers))
         check(all(want(p, n) for p, n in k["launches_by_path"].items()),
               f"{k['name']} launches by path {k['launches_by_path']}")
 
+    print("[timing] seconds per phase: " + json.dumps(
+        {name: round(t - prev, 3) for (_, prev), (name, t) in zip(marks, marks[1:])}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -14,13 +14,16 @@ envs, VRACER in both minibatch modes, checkpoint/resume, testing and
 diagnostics, the episode dumps (--save-episodes), --bf16, the --test stage
 (evaluation sweeps, SGS diagnostics, makePlot and the other figures, the
 error_rl_{N}.json curves, the async .npy sink) and the rlview training
-curves (``python -m marlpde_tpu_torch.analysis.rlview``).
+curves (``python -m marlpde_tpu_torch.analysis.rlview``).  It also covers
+the other learners: the analytic policy gradient through the differentiable
+Burgers rollout (``--learner apg``, ``rl/apg.py``, ``solvers/burger_grad.py``)
+and CMA-ES over the Smagorinsky constant (``cmaes-burger``, ``rl/cmaes.py``),
+and the supervised closure subproject (``ddp/pipeline.py``).
 The two TPU kernels of these paths are CUDA kernels written for ``sm_90a``
 (``csrc/``), wrapped in ``kernels/``; each wrapper runs its plain PyTorch
 version on CPU tensors and launches the kernel, or raises, on CUDA tensors.
-What remains of the CLI (``--learner apg``, ``cmaes-burger``, ``--mesh``)
-raises NotImplementedError with ``NOT_PORTED``; the ddp subproject has no
-module here yet (ROADMAP queue 1).
+What remains of the CLI, multi-device training (``--mesh``), raises
+NotImplementedError with ``NOT_PORTED`` (ROADMAP queue 1).
 
 The port imports torch and numpy (and scipy, and matplotlib where it is
 installed, for the test stage's figures), never jax, flax, optax or marlpde_tpu.
@@ -30,6 +33,7 @@ State is dataclasses of tensors, the device is passed explicitly, and
 
 __version__ = "0.1.0"
 
-# tail of the NotImplementedError raised by what the slice does not cover yet
+# tail of the NotImplementedError raised by --mesh, the one CLI surface not
+# ported yet
 NOT_PORTED = ("is not ported to marlpde_tpu_torch yet; see ROADMAP.md queue 1 "
-              "for the order of the remaining slices")
+              "(multi-device training, item 17)")

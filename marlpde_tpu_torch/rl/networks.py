@@ -32,6 +32,14 @@ SIGMA_CAP_LEAK = 0.05
 _TRUNC_STD = 0.87962566103423978
 
 
+@torch.no_grad()
+def lecun_normal_(weight, generator: torch.Generator | None = None):
+    """flax's lecun_normal, in place on an (out, in) weight:
+    truncated_normal(-2, 2) * sqrt(1/fan_in) / 0.8796."""
+    nn.init.trunc_normal_(weight, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    weight.mul_(float(np.sqrt(1.0 / weight.shape[1])) / _TRUNC_STD)
+
+
 def leaky_sigma_cap(sigma, sigma_max, leak: float = SIGMA_CAP_LEAK):
     """Straight-through sigma ceiling: value = min(sigma, cap); gradient =
     identity below the cap, `leak` above it."""
@@ -83,9 +91,7 @@ class VracerNet(nn.Module):
             if lin in zero_kernel:
                 lin.weight.zero_()
             else:
-                # flax lecun_normal: truncated_normal(-2, 2) * sqrt(1/fan_in)/0.8796
-                nn.init.trunc_normal_(lin.weight, 0.0, 1.0, -2.0, 2.0, generator=generator)
-                lin.weight.mul_(float(np.sqrt(1.0 / lin.in_features)) / _TRUNC_STD)
+                lecun_normal_(lin.weight, generator)
 
     @property
     def sigma_scale(self) -> float:
@@ -121,22 +127,36 @@ def _layer_names(n_hidden: int):
     return [f"hidden.{i}" for i in range(n_hidden)] + ["value", "mu", "sigma"]
 
 
-def params_from_flax(tree) -> "OrderedDict[str, torch.Tensor]":
-    """flax VracerNet params (``{'params': {'Dense_i': {'kernel', 'bias'}}}``,
-    or the inner dict, leaves as numpy arrays) -> a ``VracerNet`` state_dict.
-    Kernels ``(in, out)`` become weights ``(out, in)``."""
+def dense_state_dict(tree, names) -> "OrderedDict[str, torch.Tensor]":
+    """flax Dense params (``{'params': {'Dense_i': {'kernel', 'bias'}}}``, or
+    the inner dict, leaves as numpy arrays) -> a state_dict whose i-th Linear
+    is ``names[i]``.  Kernels ``(in, out)`` become weights ``(out, in)``."""
     p = tree["params"] if "params" in tree else tree
     dense = sorted(p, key=lambda s: int(s.split("_")[-1]))
+    if len(dense) != len(names):
+        raise ValueError(f"[networks] {len(dense)} Dense layers for {len(names)} Linear layers")
     out = OrderedDict()
-    for name, layer in zip(_layer_names(len(dense) - 3), dense):
+    for name, layer in zip(names, dense):
         out[f"{name}.weight"] = torch.from_numpy(np.array(np.asarray(p[layer]["kernel"]).T))
         out[f"{name}.bias"] = torch.from_numpy(np.array(p[layer]["bias"]))
     return out
 
 
-def params_to_flax(net: VracerNet) -> dict:
-    """Inverse of ``params_from_flax``: a flax-layout tree of numpy arrays."""
+def dense_tree(linears) -> dict:
+    """Inverse of ``dense_state_dict``: the Linear layers, in flax order, as a
+    flax-layout tree of numpy arrays."""
     return {"params": {
         f"Dense_{i}": {"kernel": lin.weight.detach().cpu().numpy().T.copy(),
                        "bias": lin.bias.detach().cpu().numpy().copy()}
-        for i, lin in enumerate(net.layers())}}
+        for i, lin in enumerate(linears)}}
+
+
+def params_from_flax(tree) -> "OrderedDict[str, torch.Tensor]":
+    """flax VracerNet params -> a ``VracerNet`` state_dict (``dense_state_dict``)."""
+    p = tree["params"] if "params" in tree else tree
+    return dense_state_dict(p, _layer_names(len(p) - 3))
+
+
+def params_to_flax(net: VracerNet) -> dict:
+    """Inverse of ``params_from_flax``: a flax-layout tree of numpy arrays."""
+    return dense_tree(net.layers())

@@ -192,6 +192,23 @@ def _cfd_op(u, nu, dx):
     return nu * d2udu2 - u * dudu
 
 
+def rk3_stages(cfg: BurgerConfig, u, v, F, nu):
+    """Spectral SSP-RK3 (Burger_jax.py:42-64) from (u, v) with the forcing
+    spectrum ``F`` constant over the three stages; returns (u', v')."""
+    k1 = torch.as_tensor(cfg.grid.k1, dtype=v.dtype, device=v.device)
+    k2 = torch.as_tensor(cfg.grid.k2, dtype=v.dtype, device=v.device)
+
+    def rhs(u_, v_):
+        return -0.5 * k1 * spectral.fft(u_ * u_) + nu * k2 * v_ + F
+
+    v1 = v + cfg.dt * rhs(u, v)
+    u1 = spectral.irfft_real(v1)
+    v2 = 0.75 * v + 0.25 * v1 + 0.25 * cfg.dt * rhs(u1, v1)
+    u2 = spectral.irfft_real(v2)
+    v3 = v / 3.0 + 2.0 / 3.0 * v2 + 2.0 / 3.0 * cfg.dt * rhs(u2, v2)
+    return spectral.irfft_real(v3), v3
+
+
 def step(cfg: BurgerConfig, state: BurgerState,
          action_field: Optional[torch.Tensor] = None) -> tuple[BurgerState, dict]:
     """One solver step of ``cfg.scheme``.  ``action_field`` is the (..., N)
@@ -225,19 +242,7 @@ def step(cfg: BurgerConfig, state: BurgerState,
         u_new = state.u + cfg.dt * (nu * d2udx2 - state.u * dudx + forcing_phys)
         v_new = spectral.fft(u_new)
     elif cfg.scheme == "rk3":
-        # Spectral SSP-RK3 (Burger_jax.py:42-64); forcing constant over stages
-        k1 = torch.as_tensor(cfg.grid.k1, dtype=v.dtype, device=v.device)
-        k2 = torch.as_tensor(cfg.grid.k2, dtype=v.dtype, device=v.device)
-
-        def rhs(u_, v_):
-            return -0.5 * k1 * spectral.fft(u_ * u_) + nu * k2 * v_ + F
-
-        v1 = v + cfg.dt * rhs(state.u, v)
-        u1 = spectral.irfft_real(v1)
-        v2 = 0.75 * v + 0.25 * v1 + 0.25 * cfg.dt * rhs(u1, v1)
-        u2 = spectral.irfft_real(v2)
-        v_new = v / 3.0 + 2.0 / 3.0 * v2 + 2.0 / 3.0 * cfg.dt * rhs(u2, v2)
-        u_new = spectral.irfft_real(v_new)
+        u_new, v_new = rk3_stages(cfg, state.u, v, F, nu)
     elif cfg.scheme == "cfd_rk3":
         # Compact-weighted FD + SSP-RK3 (Burger_rk.py:236-279); no forcing
         dx = cfg.grid.dx

@@ -1,8 +1,9 @@
 """The port's entry points run on the card unless the caller asks for the CPU:
 ``device.resolve_device(None)``, ``registry.make_env`` (every preset) and
-``run.main`` / ``run.make_workload`` without a device (training, KS and the
---test stage) raise where torch.cuda is not available, and ``device="cpu"``
-runs.  torch.cuda.is_available is patched to
+``run.main`` / ``run.make_workload`` without a device (training, KS, the
+--test stage, cmaes-burger and --learner apg), ``ddp.pipeline.generate_dns``
+and ``cmaes.make_burger_cs_objective`` raise where torch.cuda is not
+available, and ``device="cpu"`` runs.  torch.cuda.is_available is patched to
 False, so these hold on a machine with a card too.  No JAX is imported."""
 
 import pytest
@@ -126,3 +127,37 @@ def test_main_of_a_simple_preset_without_device_raises_and_keeps_the_precision(
         trun.main(["laplace", "--nagents", "4", "--episodelength", "5"] + extra)
     assert list(tmp_path.iterdir()) == []
     assert not tdevice.reduced() and not torch.backends.cuda.matmul.allow_tf32
+
+
+CMAES_TINY = "cmaes-burger --NDNS 32 --N 8 --dt 0.01 --T 0.05 --episodelength 5 --numgen 1"
+APG_TINY = ("burger-jax --NDNS 32 --N 8 --NA 8 --dt 0.01 --T 0.05 --episodelength 5 "
+            "--numenvs 2 --NE 10 --width 8 --learner apg --run 995")
+
+
+@pytest.mark.parametrize("argv", [CMAES_TINY, CMAES_TINY + " --test", APG_TINY],
+                         ids=["cmaes", "cmaes-test", "apg"])
+def test_main_of_the_other_learners_raises_without_a_card_and_runs_on_the_cpu(
+        no_card, argv, tmp_path, monkeypatch, capsys):
+    """cmaes-burger (also under --test) and --learner apg build their pool on
+    the card unless asked for the CPU."""
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match=NO_CARD):
+        trun.main(argv.split())
+    assert list(tmp_path.iterdir()) == []
+    trun.main(argv.split(), device="cpu")
+    assert capsys.readouterr().out.count("{") == 1
+
+
+def test_the_other_entry_points_raise_without_a_card(no_card):
+    from marlpde_tpu_torch.ddp import pipeline
+    from marlpde_tpu_torch.rl import cmaes
+
+    cfg = pipeline.DdpConfig(N=64, n_les=16)
+    with pytest.raises(RuntimeError, match=NO_CARD):
+        pipeline.generate_dns(cfg, 20, torch.Generator())
+    U, F = pipeline.generate_dns(cfg, 20, torch.Generator(), device="cpu")
+    assert U.device.type == "cpu" and U.shape == (21, 64)
+    kw = dict(N_dns=32, grid_size=8, dt=0.01, T=0.05, episode_length=5)
+    with pytest.raises(RuntimeError, match=NO_CARD):
+        cmaes.make_burger_cs_objective(**kw)
+    assert cmaes.make_burger_cs_objective(device="cpu", **kw)([[0.1]]).shape == (1,)

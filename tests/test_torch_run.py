@@ -24,6 +24,16 @@ TINY = ("burger-marl --nagents 4 --specreward --dforce --ic turbulence --NDNS 64
         "--run 999 --serialize-replay").split()
 
 
+# the flags that cut the ported surfaces of test_unported_presets_and_flags_raise
+# to a tiny run: burger-marl with 2 agents for 2 APG iterations of 2 episodes,
+# and 2 CMA-ES generations
+TINY_RUNS = {
+    "apg": ("--nagents 2 --NDNS 32 --N 8 --NA 8 --dt 0.01 --T 0.05 --episodelength 5 "
+            "--numenvs 2 --NE 20 --width 8").split(),
+    "cmaes-burger": "--NDNS 32 --N 8 --dt 0.01 --T 0.05 --episodelength 5 --numgen 2".split(),
+}
+
+
 def _actions(parser):
     return {a.dest: a for a in parser._actions if a.dest != "help"}
 
@@ -99,20 +109,36 @@ def test_tiny_main_trains_resumes_and_prints_one_json_line(tmp_path, monkeypatch
     ["diffusion-error"], ["diffusion-simple"], ["diffusion-stencil3"], ["advection-simple"],
     BARE + ["--test", "--bf16"], ["cmaes-burger", "--test"]],
     ids=lambda a: " ".join(a[:1] + a[-2:]))
-def test_unported_presets_and_flags_raise(argv, tmp_path, monkeypatch):
-    """What the port does not cover (--mesh, --learner apg, cmaes-burger)
-    raises, naming ROADMAP, before anything is built or written; the presets
-    and flags ported since (the diffusion, advection and Laplace presets,
-    --save-episodes, --bf16) pass the refusal."""
+def test_unported_presets_and_flags_raise(argv, tmp_path, monkeypatch, capsys):
+    """What the port does not cover (training with --mesh) raises, naming
+    ROADMAP, before anything is built or written; the presets and flags
+    ported since (the diffusion, advection and Laplace presets,
+    --save-episodes, --bf16) pass the refusal, and --learner apg and
+    cmaes-burger (also under --test) pass it and run, here at a tiny size
+    (TINY_RUNS), each printing its one JSON line."""
     monkeypatch.chdir(tmp_path)
-    unported = "--mesh" in argv or "apg" in argv or argv[0] == "cmaes-burger"
-    if unported:
+    if "--mesh" in argv:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             trun.main(argv, device="cpu")
+        assert list(tmp_path.iterdir()) == []
+        return
+    trun._refuse_unported(trun.build_parser().parse_args(argv))
+    assert argv[0] in trun.RL_DEFAULTS or argv[0] == "cmaes-burger"
+    kind = "apg" if "apg" in argv else argv[0]
+    if kind not in TINY_RUNS:
+        assert list(tmp_path.iterdir()) == []
+        return
+    trun.main(argv + TINY_RUNS[kind], device="cpu")
+    lines = _json_lines(capsys.readouterr().out)
+    assert len(lines) == 1 and lines[0]["workload"] == argv[0]
+    if kind == "apg":
+        assert lines[0]["learner"] == "apg" and lines[0]["iterations"] == 2
+        assert np.isfinite(lines[0]["final_mean_return"])
+        assert {p.name for p in (tmp_path / "_result_burger-marl_0").iterdir()} == {
+            "latest.pt", "history.json"}
     else:
-        trun._refuse_unported(trun.build_parser().parse_args(argv))
-        assert argv[0] in trun.TEST_WORKLOADS
-    assert list(tmp_path.iterdir()) == []
+        assert lines[0]["generations"] == 2 and 0.0 <= lines[0]["best_cs"] <= 1.0
+        assert list(tmp_path.iterdir()) == []
 
 
 def test_parser_accepts_the_jax_flag_surface():

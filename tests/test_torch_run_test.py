@@ -188,8 +188,10 @@ def test_training_only_flags_are_ignored_by_the_test_stage_as_in_jax(flag, tmp_p
     """The JAX CLI skips its mesh and apg branches under --test, and its test
     stage never reads --save-episodes' directory (marlpde_tpu/run.py:388-390,
     458,498): the port's summary equals the JAX one.  --bf16 is taken by the
-    test stage too; training refuses --mesh and --learner apg, and trains
-    with --save-episodes."""
+    test stage too; training refuses --mesh, trains with --save-episodes, and
+    with --learner apg trains by APG and writes a checkpoint that --test
+    reads, as the JAX CLI does (the same keys and iteration count: the
+    weights are drawn by each package's own generator)."""
     jdir, tdir = tmp_path / "j", tmp_path / "t"
     jdir.mkdir()
     tdir.mkdir()
@@ -204,9 +206,25 @@ def test_training_only_flags_are_ignored_by_the_test_stage_as_in_jax(flag, tmp_p
     assert got_bf16 == got
     if flag[0] == "--save-episodes":
         trun._refuse_unported(trun.build_parser().parse_args(BURGER + flag))
-    else:
+    elif flag[0] == "--mesh":
         with pytest.raises(NotImplementedError, match=flag[0]):
             trun.main(BURGER + flag, device="cpu")
+    else:
+        apg = BURGER + flag + ["--NE", "20", "--numenvs", "2", "--run", "5"]
+        monkeypatch.chdir(jdir)
+        jrun.main(apg)
+        want = _json_lines(capsys.readouterr().out)
+        monkeypatch.chdir(tdir)
+        ts, rep, hist = trun.main(apg, device="cpu")
+        got = _json_lines(capsys.readouterr().out)
+        assert rep is None and len(want) == len(got) == 1 and list(got[0]) == list(want[0])
+        assert got[0] == {"workload": "burger", "learner": "apg", "iterations": 2,
+                          "final_mean_return": hist["mean_return"][-1]}
+        assert want[0]["iterations"] == 2 and np.isfinite(got[0]["final_mean_return"])
+        got, want = _both(BURGER + ["--run", "5", "--test", "--testepisodes", "2"], jdir, tdir,
+                          monkeypatch, capsys)
+        assert len(got["test_returns"]) == 2 and np.isfinite(got["test_mean_return"])
+        assert _files(tdir / "_result_burger_5") == _files(jdir / "_result_burger_5")
 
 
 @pytest.mark.parametrize("argv", [["diffusion-simple", "--test"], ["laplace", "--test"],
@@ -214,12 +232,14 @@ def test_training_only_flags_are_ignored_by_the_test_stage_as_in_jax(flag, tmp_p
 def test_test_stage_of_unported_workloads_raises(argv, tmp_path, monkeypatch):
     """These workloads' test stages are ported (tests/test_torch_run_simple.py
     runs them); without a checkpoint they exit as every test stage does, and
-    cmaes-burger's, which is not ported, still raises."""
+    cmaes-burger, now ported, runs CMA-ES under --test too, as the JAX CLI
+    does (tests/test_torch_cmaes.py holds it against the JAX CLI)."""
     monkeypatch.chdir(tmp_path)
     with pytest.raises(SystemExit, match="no checkpoint"):
         trun.main(argv, device="cpu")
-    with pytest.raises(NotImplementedError, match="cmaes-burger"):
-        trun.main(["cmaes-burger", "--test"], device="cpu")
+    out = trun.main("cmaes-burger --test --NDNS 32 --N 8 --dt 0.01 --T 0.05 --episodelength 5 "
+                    "--numgen 1".split(), device="cpu")
+    assert out["workload"] == "cmaes-burger" and out["generations"] == 1
 
 
 def test_test_without_a_checkpoint_exits(tmp_path, monkeypatch):
