@@ -78,18 +78,31 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 19. [ddp] the ddp pipeline at tests/test_ddp.py::TestPipelineScale's scale
    (N=1024 DNS of 4000 steps, n_les 128, 80 epochs, a-priori and
    a-posteriori checks), a transfer step with frozen layers, and the card's
-   DNS against the CPU's from the same draws.
+   DNS against the CPU's from the same draws;
+20. [mesh] the run-918 flags with --mesh through the CLI at a world of 1 on
+   NCCL (RUN_MESH: 3 generations, updates from the second, then --resume for
+   a fourth), with seconds per generation and ms per update beside
+   [cli-breakdown]'s, and the all_reduces per update and their time;
+21. [mesh-2] two ranks on the card under gloo, spawned by
+   ``python -m marlpde_tpu_torch.parallel.dryrun --device cuda``: the dry run
+   (both minibatch modes, train states equal bit for bit across the ranks,
+   the DCP checkpoint restored on each), then the run-918 flags at 5 envs a
+   rank for 2 generations (RUN_MESH2), each rank launching both kernels.
 
 The [kernels] phase also holds the MLP kernel at the [simple] shapes of all
 five presets, at obs 128/256 with widths 128/256 (WIDE_INPUTS) and at the
-shape of [apg]'s --test stage (APG_HEADS).  A [timing] line gives each
-phase's seconds.
+shape of [apg]'s --test stage (APG_HEADS), and both kernels at the shapes
+that only the mesh paths run: [mesh]'s update rows, [mesh-2]'s run-918 CLI at
+5 envs a rank (ABCN B=5; MLP acting, insert and update rows, MESH_ROWS) and
+its dry run's small flagship (ABCN B=1 at N=16; MLP width 32, DRYRUN_ROWS).
+A [timing] line gives each phase's seconds.
 
 Launch counts are set to 0 just before each path and read just after; the
 comparisons of a kernel with its plain version are not counted.  The
-flagship Burgers paths (main, cli, cli_w256, cli_test) must launch both
-kernels; the paths ks, ks_test, fd, fd_test, variants, simple, simple_test,
-bf16 and apg the MLP kernel and never the ABCN kernel: their configs run the
+flagship Burgers paths (main, cli, cli_w256, cli_test, mesh, mesh2; mesh2's
+counts are its ranks' summed) must launch both kernels; the paths ks,
+ks_test, fd, fd_test, variants, simple, simple_test, bf16 and apg the MLP
+kernel and never the ABCN kernel: their configs run the
 general per-env env on torch.fft or have no Burgers solver, as in the JAX
 package (apg launches the MLP kernel only in its --test stage: training
 differentiates the module, as JAX differentiates flax's apply); cmaes and
@@ -256,6 +269,21 @@ CMAES_CS = (0.0, 0.2, 0.8)
 # float32 DNS is compared over DDP_AGREE_STEPS
 DDP_SEEDS = (7, 1)
 DDP_AGREE_STEPS = 200
+# [mesh]: the run-918 flags with --mesh at a world of 1 (NCCL), cut to 3
+# generations (--NE 15000) of MESH_UPDATES updates (--maxupd); --rstart 10000
+# makes generation 2 the first with updates (5000 live steps a generation),
+# and --resume --NE 20000 adds a fourth, whose replay starts empty, as in JAX
+MESH_UPDATES = 250
+RUN_MESH = RUN_918 + f"--mesh --maxupd {MESH_UPDATES} --rstart 10000 --run 91".split()
+# [mesh-2]: the run-918 flags on 2 ranks sharing the card (gloo), 5 envs a
+# rank, cut to 2 generations (--NE 10000) of 50 updates (--rstart 5000: the
+# two shards' 5000 live steps warm the replay in generation 1)
+RUN_MESH2 = RUN_918 + "--NE 10000 --rstart 5000 --maxupd 50 --run 92 --mesh".split()
+# the MLP rows of the mesh paths that no other path runs: [mesh]'s updates
+# (mbsize 8 x 32 agents) and [mesh-2]'s run-918 CLI on 2 ranks (acting,
+# insert, updates); the dry run's on 2 ranks (acting, insert, updates)
+MESH_ROWS = (256, 160, 80000, 128)
+DRYRUN_ROWS = (4, 20, 32)
 
 
 def check(cond, msg):
@@ -350,8 +378,9 @@ def phase_kernels(env, dev):
     """Each kernel against its plain version at the paths' shapes."""
     import numpy as np
     import torch
-    from marlpde_tpu_torch.envs import burger_env, burger_fast
+    from marlpde_tpu_torch.envs import burger_env, burger_fast, registry
     from marlpde_tpu_torch.kernels import mlp
+    from marlpde_tpu_torch.parallel import dryrun
     from marlpde_tpu_torch.rl import networks
 
     floor_ms = median_ms(lambda: torch.cuda._sleep(0))
@@ -359,16 +388,27 @@ def phase_kernels(env, dev):
           f"{floor_ms:.5f} ms by the same CUDA-event method")
     cfg = env.cfg
     g = torch.Generator(device=dev).manual_seed(1)
-    st, _ = burger_fast.reset(cfg, env.consts, g, torch.arange(NUM_ENVS, device=dev))
-    actions = torch.randn(NUM_ENVS, cfg.num_agents, cfg.actions_per_agent, generator=g,
-                          device=dev) * 0.5
-    basis = torch.as_tensor(burger_env.action_basis(cfg), dtype=torch.float32, device=dev)
-    af = torch.fft.fft(actions.reshape(NUM_ENVS, -1) @ basis)
-    args = (st.u, st.v_re, st.v_im, st.fn_re, st.fn_im, st.nu,
-            af.real.contiguous(), af.imag.contiguous())
-    kw = dict(n_intermediate=cfg.n_intermediate, dt=cfg.dt, dx=cfg.les_solver.grid.dx)
+
+    def abcn_inputs(env, B):
+        """The ABCN kernel's inputs for B reset envs of ``env`` and random actions."""
+        cfg = env.cfg
+        st, _ = burger_fast.reset(cfg, env.consts, g, torch.arange(B, device=dev))
+        actions = torch.randn(B, cfg.num_agents, cfg.actions_per_agent, generator=g,
+                              device=dev) * 0.5
+        basis = torch.as_tensor(burger_env.action_basis(cfg), dtype=torch.float32, device=dev)
+        af = torch.fft.fft(actions.reshape(B, -1) @ basis)
+        return ((st.u, st.v_re, st.v_im, st.fn_re, st.fn_im, st.nu, af.real.contiguous(),
+                 af.imag.contiguous()),
+                dict(n_intermediate=cfg.n_intermediate, dt=cfg.dt, dx=cfg.les_solver.grid.dx))
+
+    args, kw = abcn_inputs(env, NUM_ENVS)
     flagship = _abcn_row(args, kw, "fused flagship")
     cli = _abcn_row([a[:10].contiguous() for a in args], kw, "run-918 CLI")
+    # [mesh-2]: the run-918 CLI at 5 envs a rank, and the dry run's small
+    # flagship (one env a rank, 16-point LES, 4 sub-steps)
+    mesh2 = _abcn_row([a[:5].contiguous() for a in args], kw, "[mesh-2] run-918 CLI")
+    small = registry.make_env("burger", dtype=torch.float32, device=dev, **dryrun.SMALL_FLAGSHIP)
+    dry = _abcn_row(*abcn_inputs(small, 1), "[mesh-2] dry run")
     # N=64, off the main path: one env a block, a stage through shared memory
     n64 = torch.Generator().manual_seed(64)
     u = torch.randn(NUM_ENVS, 64, generator=n64) * 0.5 + 1.0
@@ -379,12 +419,14 @@ def phase_kernels(env, dev):
         torch.randn(NUM_ENVS, 64, generator=n64) * 0.1,
         torch.randn(NUM_ENVS, 64, generator=n64) * 0.1)]
     wide = _abcn_row(args64, dict(kw, dx=float(2 * np.pi / 64)), "off the main path")
+    rows = dict(b10=cli, n64=wide, b5=mesh2, n16_b1=dry)
     results = [dict(name="abcn_macro_step", route="cuda",
                     source="marlpde_tpu_torch/csrc/abcn.cu",
                     replaces="marlpde_tpu/ops/abcn_pallas.py:105", library_ms=None,
-                    **flagship,
-                    **{f"{key}_b10": cli[key] for key in ("ms", "plain_ms", "bound_ms")},
-                    **{f"{key}_n64": wide[key] for key in ("ms", "plain_ms", "bound_ms")},
+                    **dict(flagship, max_abs_err=max(r["max_abs_err"] for r in
+                                                     [flagship, *rows.values()])),
+                    **{f"{key}_{tag}": row[key] for tag, row in rows.items()
+                       for key in ("ms", "plain_ms", "bound_ms")},
                     floor_ms=floor_ms)]
 
     # flagship acting rows (1024 envs x 32 agents), then the CLI's acting rows
@@ -404,6 +446,14 @@ def phase_kernels(env, dev):
               # runs (32 actions) and burger-jax (32 actions, sigma_max 0.1, iex 0.01)
               + [(R, 32, A, 256, "absolute", sigma_max, iex) for R in (16, 800)
                  for A, sigma_max, iex in VARIANT_HEADS.values()]
+              # [mesh]'s update rows (mbsize 8 x 32 agents at a world of 1), then
+              # [mesh-2]'s run-918 CLI on 2 ranks: acting (5 envs x 32 agents),
+              # insert (5 x 500 x 32) and update rows (8 // 2 x 32)
+              + [(R, D, A, 128, "absolute", np.inf, 0.1) for R in MESH_ROWS]
+              # [mesh-2]'s dry run on 2 ranks: acting (1 env x 4 agents), insert
+              # (1 x 5 x 4) and update rows (16 // 2 x 4)
+              + [(R, small.obs_dim, small.act_dim, dryrun.WIDTH, "absolute", np.inf, 0.1)
+                 for R in DRYRUN_ROWS]
               # [simple], the wide-input shapes and [apg]'s --test
               + [(R, *head) for head, rows in list(SIMPLE_HEADS.values())
                  + list(WIDE_INPUTS.values()) + list(APG_HEADS.values()) for R in rows])
@@ -448,7 +498,11 @@ def phase_kernels(env, dev):
            for R in (16, 800) for A, sigma_max, iex in VARIANT_HEADS.values()}
     new_shapes = {f"{tag}_r{R}": by_shape[(R, *head)] for tag, (head, rows) in
                   list(SIMPLE_HEADS.items()) + list(WIDE_INPUTS.items())
-                  + list(APG_HEADS.items()) for R in rows}
+                  + list(APG_HEADS.items())
+                  + [("mesh", ((cfg.obs_dim, cfg.actions_per_agent, 128, "absolute", np.inf,
+                                0.1), MESH_ROWS)),
+                     ("dryrun", ((small.obs_dim, small.act_dim, dryrun.WIDTH, "absolute",
+                                  np.inf, 0.1), DRYRUN_ROWS))] for R in rows}
     results.append(dict(name="mlp_forward", route="cuda",
                         source="marlpde_tpu_torch/csrc/mlp.cu",
                         replaces="marlpde_tpu/ops/mlp_pallas.py:71",
@@ -739,6 +793,7 @@ def phase_cli_breakdown(tag, argv, ts, rep, what, gen_updates, gen_s=None):
     if gen_s:
         line += f"; the CLI's generations took {', '.join(f'{x:.3f}' for x in gen_s)} s"
     print(line)
+    return 1000 * per_update
 
 
 def phase_cli_w256():
@@ -1842,6 +1897,159 @@ def phase_ddp(dev):
     return launches
 
 
+@contextlib.contextmanager
+def _all_reduces():
+    """Count and time every torch.distributed.all_reduce: yields a list that
+    gets (CUDA start event, end event, host seconds, backend) per call."""
+    import torch
+    import torch.distributed as dist
+    real = dist.all_reduce
+    calls = []
+
+    def timed(tensor, *args, group=None, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = real(tensor, *args, group=group, **kw)
+        end.record()
+        calls.append((start, end, time.perf_counter() - t0, dist.get_backend(group)))
+        return out
+
+    dist.all_reduce = timed
+    try:
+        yield calls
+    finally:
+        dist.all_reduce = real
+
+
+def phase_mesh(cli_ms_per_update):
+    """The run-918 flags with --mesh at a world of 1 through the CLI: the NCCL
+    group, 3 generations (updates from the second) and --resume for a
+    fourth; seconds per generation and ms per update beside [cli-breakdown]'s,
+    the all_reduces per update and their time.  Returns the path's launches."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from marlpde_tpu_torch.rl import vracer
+
+    def run(argv, tag):
+        # the updates' seconds of a generation: from the first update's call
+        # (the replay gate's readback has just synchronized) to the end of
+        # the generation (synchronized before the callback)
+        marks, starts, real = [], [], vracer.update_experience
+
+        def update(*args, **kw):
+            starts.append(time.perf_counter())
+            return real(*args, **kw)
+
+        def also(gen, ts, rep, hist):
+            now, before = time.perf_counter(), marks[-1][3] if marks else 0
+            upd_s = now - starts[before] if len(starts) > before else 0.0
+            marks.append((len(calls), ts.n_updates, upd_s, len(starts)))
+
+        vracer.update_experience = update
+        try:
+            with _all_reduces() as calls:
+                ts, rep, hist, rows, launches = _cli(argv, tag, also)
+                torch.cuda.synchronize()
+        finally:
+            vracer.update_experience = real
+        check(not dist.is_initialized(), f"{tag}: the CLI left its process group behind")
+        check({c[3] for c in calls} == {"nccl"}, f"{tag}: all_reduce backends "
+                                                  f"{ {c[3] for c in calls} }")
+        _check_state_on_card(tag, ts, rep)
+        prev_calls = 0
+        for r, (n_calls, n_upd, upd_s, _) in zip(rows, marks):
+            print(f"[{tag}] gen {r['gen']}: {r['s']:.3f} s ({upd_s:.3f} s of updates), "
+                  f"mean_return {hist['mean_return'][r['gen'] - 1]:.6f}, ep_len "
+                  f"{hist['mean_ep_len'][r['gen'] - 1]:.1f}, n_updates {n_upd}, "
+                  f"all_reduces +{n_calls - prev_calls}, launches abcn +{r['d_abcn']} "
+                  f"mlp +{r['d_mlp']}", flush=True)
+            check(r["d_abcn"] >= 500 and r["d_mlp"] >= 500 and np.isfinite(
+                hist["mean_return"][r["gen"] - 1]), f"{tag} gen {r['gen']}")
+            prev_calls = n_calls
+        device_ms = [c[0].elapsed_time(c[1]) for c in calls]
+        host_ms = [1000 * c[2] for c in calls]
+        return ts, hist, rows, marks, launches, device_ms, host_ms
+
+    ts, hist, rows, marks, launches, device_ms, host_ms = run(RUN_MESH + ["--NE", "15000"],
+                                                              "mesh")
+    check(hist["gen"] == [1, 2, 3] and [m[1] for m in marks] == [0, MESH_UPDATES,
+                                                                 2 * MESH_UPDATES],
+          f"mesh: generations {hist['gen']}, updates {[m[1] for m in marks]}")
+    check(hist["experiences"] == [g * 10 * 500 for g in (1, 2, 3)], f"mesh {hist['experiences']}")
+    per_gen = [marks[0][0]] + [b[0] - a[0] for a, b in zip(marks, marks[1:])]
+    per_update = (per_gen[1] - per_gen[0]) / MESH_UPDATES
+    check(per_update == int(per_update) and per_gen[2] == per_gen[1],
+          f"mesh: all_reduces per generation {per_gen}")
+    upd_ms = [1000 * m[2] / MESH_UPDATES for m in marks[1:]]
+    gen_s = ", ".join(f"{r['s']:.3f}" for r in rows)
+    print(f"[mesh] seconds per generation {gen_s} (generation 1 collects and inserts, 2 and 3 "
+          f"also run {MESH_UPDATES} updates); ms per update {upd_ms[0]:.3f} and "
+          f"{upd_ms[1]:.3f} in generations 2 and 3, [cli-breakdown] "
+          f"{cli_ms_per_update:.3f} in this call "
+          f"({100 * (min(upd_ms) / cli_ms_per_update - 1):+.1f}% to "
+          f"{100 * (max(upd_ms) / cli_ms_per_update - 1):+.1f}%)")
+    gen2 = device_ms[marks[0][0]:marks[1][0]]
+    print(f"[mesh] all_reduces: {per_gen[0]} a generation outside the updates (normalizers, "
+          f"replay gate, stats) and {int(per_update)} per update (gradients, off-policy "
+          f"counts); device time {np.median(device_ms):.4f} ms median per call, "
+          f"{sum(gen2) / MESH_UPDATES:.4f} ms per update in generation 2; host "
+          f"{np.median(host_ms):.4f} ms median per call (NCCL, world 1)")
+
+    ts, hist, rows2, marks2, launches2, _, _ = run(RUN_MESH + ["--NE", "20000", "--resume"],
+                                                   "mesh-resume")
+    check(hist["gen"] == [1, 2, 3, 4] and marks2[-1][1] == 2 * MESH_UPDATES,
+          f"mesh resume: generations {hist['gen']}, n_updates {marks2[-1][1]} (the replay "
+          f"restarts empty: 5000 live steps, under --rstart)")
+    return {k: launches[k] + launches2[k] for k in launches}
+
+
+def phase_mesh2(workdir):
+    """Two ranks on the card under gloo, spawned by parallel.dryrun: the dry
+    run (both modes, the train state equal bit for bit across the ranks, the
+    DCP checkpoint restored on each), then the run-918 flags at 5 envs a rank
+    for 2 generations.  Returns the path's launches, summed over the ranks."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+
+    def dryrun(tag, args):
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "marlpde_tpu_torch.parallel.dryrun",
+                              "--world", "2", "--device", "cuda", "--timeout", "400", *args],
+                             cwd=workdir, env=env, capture_output=True, text=True, timeout=450)
+        seconds = time.perf_counter() - t0
+        for ln in (out.stderr + out.stdout).splitlines():
+            if ln.strip() and "hostname of the client" not in ln:
+                print(f"[{tag}] | {ln}")
+        check(out.returncode == 0, f"{tag}: exit {out.returncode}")
+        verdict = json.loads(out.stdout.strip().splitlines()[-1])
+        check(verdict["ok"] and verdict["processes"] == 2, f"{tag}: {verdict}")
+        check("backend gloo (ranks share a card)" in out.stderr, f"{tag}: backend")
+        print(f"[{tag}] {seconds:.1f} s, launches by rank {verdict['launches']}")
+        return out, verdict
+
+    out, verdict = dryrun("mesh-2", ["--out", os.path.join(workdir, "dryrun")])
+    check(out.stderr.count("experience-mode OK") == 2 and out.stderr.count("episode-mode OK") == 2,
+          "mesh-2: a mode or a rank did not pass")
+    check(all(r["mlp_forward"] > 0 for r in verdict["launches"]), "mesh-2: MLP not launched")
+    total = {k: sum(r[k] for r in verdict["launches"]) for k in verdict["launches"][0]}
+    out, verdict = dryrun("mesh-2-cli", ["--cli", *RUN_MESH2])
+    lines = verdict["json_lines"]
+    check(lines[1] == [] and len(lines[0]) == 1 and lines[0][0]["mesh_devices"] == 2
+          and lines[0][0]["generations"] == 2 and _finite([lines[0][0]["final_mean_return"]]),
+          f"mesh-2-cli: JSON lines {lines}")
+    check(len(set(verdict["digests"])) == 1 and verdict["n_updates"] == [100, 100],
+          f"mesh-2-cli: digests {verdict['digests']}, updates {verdict['n_updates']}")
+    check(all(r["abcn_macro_step"] >= 1000 and r["mlp_forward"] >= 1000
+              for r in verdict["launches"]), f"mesh-2-cli: launches {verdict['launches']}")
+    print(f"[mesh-2-cli] both ranks' train states equal bit for bit after "
+          f"{verdict['n_updates'][0]} updates: {verdict['digests'][0][:16]}; seconds since "
+          f"the first generation began, after each, by rank {verdict['wall_time']}")
+    return {k: total[k] + sum(r[k] for r in verdict["launches"]) for k in total}
+
+
 def ptxas_by_instantiation(log, kernel, want):
     """{template argument: (registers, spill store bytes, spill load bytes)}
     of each instantiation of the kernel template ``kernel`` in ptxas's -v
@@ -1936,13 +2144,17 @@ def main() -> int:
         try:
             ts, rep, launches_cli = phase_cli(workdir)
             mark("cli")
-            phase_cli_breakdown("cli-breakdown", RUN_918, ts, rep, "10 envs x 500 macro-steps",
-                                2500)
+            cli_ms = phase_cli_breakdown("cli-breakdown", RUN_918, ts, rep,
+                                         "10 envs x 500 macro-steps", 2500)
             mark("cli-breakdown")
             launches_cli_test = phase_cli_test(workdir)
             mark("cli-test")
             launches_w256 = phase_cli_w256()
             mark("cli-w256")
+            launches_mesh = phase_mesh(cli_ms)
+            mark("mesh")
+            launches_mesh2 = phase_mesh2(workdir)
+            mark("mesh-2")
             del ts, rep
             ts, rep, gen_s, launches_ks, launches_ks_test = phase_ks(workdir)
             mark("ks")
@@ -1994,14 +2206,14 @@ def main() -> int:
                    fd=launches_fd, fd_test=launches_fd_test, variants=launches_variants,
                    simple=launches_simple, simple_test=launches_simple_test,
                    bf16=launches_bf16, apg=launches_apg, cmaes=launches_cmaes,
-                   ddp=launches_ddp)
+                   ddp=launches_ddp, mesh=launches_mesh, mesh2=launches_mesh2)
     # the flagship Burgers paths run both kernels; KS has its own solver, the
     # other Burgers configs run the general per-env env (torch.fft), and the
     # diffusion, advection and Laplace envs have no Burgers solver: the MLP
     # kernel only.  APG differentiates the module and acts through the kernel
     # in its --test stage; CMA-ES and the ddp pipeline have no VRACER policy
     # and run their own ABCN loops on torch.fft: neither kernel
-    burgers = ("main", "cli", "cli_w256", "cli_test")
+    burgers = ("main", "cli", "cli_w256", "cli_test", "mesh", "mesh2")
     no_policy = ("cmaes", "ddp")
     for k in kernels:
         k["launches"] = launches_cli[k["name"]]

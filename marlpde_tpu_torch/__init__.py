@@ -18,12 +18,14 @@ curves (``python -m marlpde_tpu_torch.analysis.rlview``).  It also covers
 the other learners: the analytic policy gradient through the differentiable
 Burgers rollout (``--learner apg``, ``rl/apg.py``, ``solvers/burger_grad.py``)
 and CMA-ES over the Smagorinsky constant (``cmaes-burger``, ``rl/cmaes.py``),
-and the supervised closure subproject (``ddp/pipeline.py``).
-The two TPU kernels of these paths are CUDA kernels written for ``sm_90a``
-(``csrc/``), wrapped in ``kernels/``; each wrapper runs its plain PyTorch
-version on CPU tensors and launches the kernel, or raises, on CUDA tensors.
-What remains of the CLI, multi-device training (``--mesh``), raises
-NotImplementedError with ``NOT_PORTED`` (ROADMAP queue 1).
+the supervised closure subproject (``ddp/pipeline.py``), and multi-device
+training (``--mesh``, ``parallel/mesh.py``: one rank per process on
+torch.distributed, NCCL between cards, gloo on the CPU or where ranks share a
+card; ``python -m marlpde_tpu_torch.parallel.dryrun`` is the multi-process
+dry run).  The two TPU kernels of these paths are CUDA kernels written for
+``sm_90a`` (``csrc/``), wrapped in ``kernels/``; each wrapper runs its plain
+PyTorch version on CPU tensors and launches the kernel, or raises, on CUDA
+tensors.
 
 The port imports torch and numpy (and scipy, and matplotlib where it is
 installed, for the test stage's figures), never jax, flax, optax or marlpde_tpu.
@@ -32,8 +34,3 @@ State is dataclasses of tensors, the device is passed explicitly, and
 """
 
 __version__ = "0.1.0"
-
-# tail of the NotImplementedError raised by --mesh, the one CLI surface not
-# ported yet
-NOT_PORTED = ("is not ported to marlpde_tpu_torch yet; see ROADMAP.md queue 1 "
-              "(multi-device training, item 17)")

@@ -16,6 +16,14 @@ default): uniform-experience minibatches over the flat REFER replay
 per update, the replay-wide off-policy fraction driving beta at the annealed
 learning rate, and second-moment reward rescaling over the live buffer.
 
+Data-parallel training (parallel/mesh.py) passes ``group``, the rank's
+``Mesh``, to ``flat_insert``, ``update_experience`` and ``update``: the
+counterpart of the JAX package's shard_map ``axis``.  The replay is the
+rank's own shard; the reward-scale sums and the replay-wide off-policy counts
+are summed over the ranks and the gradients averaged before the global-norm
+clip, so every rank takes the same step.  With ``group=None`` nothing is
+reduced.
+
 In PyTorch's idiom the train state holds the ``VracerNet`` module and its
 ``torch.optim.Adam``; ``update`` and ``update_experience`` step them, and the
 replay, in place.  Every forward that needs no gradient (acting, the
@@ -371,28 +379,34 @@ def _joint_rho(cfg: VracerConfig, actions, mu, sigma, mu_b, sigma_b):
     return torch.exp(log_ratio), logp
 
 
-def _insert_scale(cfg: VracerConfig, ts: TrainState, frep, rewards=None, mask=None):
+def _insert_scale(cfg: VracerConfig, ts: TrainState, frep, rewards=None, mask=None,
+                  group=None):
     """The reward-rescaling sigma: 1 without rescaling, the cumulative
-    second moment, or korali's live-buffer one (with a fresh batch folded in
-    when ``rewards`` is given)."""
+    second moment (the normalizer, already the same on every rank), or
+    korali's live-buffer one (with a fresh batch folded in when ``rewards``
+    is given), its sums taken over every rank's shard under ``group``."""
     if not cfg.reward_rescaling:
         return torch.ones((), dtype=ts.beta.dtype, device=ts.beta.device)
     if cfg.reward_scale_source == "cumulative":
         return running_stats.second_moment(ts.rew_stats)
-    return replay_flat.scale_from_sums(*replay_flat.reward_scale_sums(
-        frep, cfg.reward_floor, extra=rewards, extra_mask=mask))
+    s, n = replay_flat.reward_scale_sums(frep, cfg.reward_floor, extra=rewards, extra_mask=mask)
+    if group is not None:
+        s, n = group.psum([s, n])
+    return replay_flat.scale_from_sums(s, n)
 
 
 @torch.no_grad()
-def flat_insert(cfg: VracerConfig, ts: TrainState, frep, batch):
+def flat_insert(cfg: VracerConfig, ts: TrainState, frep, batch, group=None):
     """korali processEpisode: compute the entering episodes' V(s), on-policy
     (rho=1) retrace values in current scaled-reward units and the
     truncated-state bootstrap V(s_T), then append the live steps to the flat
     ring (in place).  batch: episode tensors (B, T, na, ...) from
     collect_episodes.  With the cumulative scale, ``observe_episodes`` must
-    already have folded these episodes in, as both trainer paths do."""
+    already have folded these episodes in, as both trainer paths do.  Under
+    ``group`` (vracer.py:511-547) ``frep`` is the rank's shard and the
+    live-buffer scale is that of every rank's shard and batch."""
     V = policy_apply(cfg, ts, batch["obs"])[0]                       # (B, T, na)
-    scale = _insert_scale(cfg, ts, frep, batch["rewards"], batch["mask"])
+    scale = _insert_scale(cfg, ts, frep, batch["rewards"], batch["mask"], group)
     rewards = _rescale_rewards(cfg, batch["rewards"], scale)
     boot = (_sanitized_final_V(cfg, ts, batch["final_obs"])
             * batch["truncated"].to(V.dtype)[..., None])
@@ -444,7 +458,7 @@ def _annealed(cfg: VracerConfig, n_updates: int):
 
 
 def update_experience(cfg: VracerConfig, ts: TrainState, frep, generator,
-                      mini_batch: int | None = None):
+                      group=None, mini_batch: int | None = None):
     """One korali-faithful VRACER update on the flat experience replay
     (vracer.py:583-666, one device): sample ``mini_batch_size`` experiences
     uniformly; forward the current policy on them and refresh their stored
@@ -456,13 +470,19 @@ def update_experience(cfg: VracerConfig, ts: TrainState, frep, generator,
     The metadata refresh evaluates the same parameters on the same rows as the
     loss, so it takes the loss forward's detached outputs instead of a second
     forward (equal in exact arithmetic).  Returns (ts, frep, metrics); the
-    module, the optimizer state and the replay change in place."""
+    module, the optimizer state and the replay change in place.
+
+    Under ``group`` (vracer.py:583-666 with ``axis``) ``frep`` is the rank's
+    shard and ``mini_batch`` the rank's slice of the minibatch: sampling and
+    the refreshes stay on the shard, the live-buffer scale and the replay-wide
+    off-policy fraction are summed over the ranks, and the gradients are
+    averaged before the clip, so every rank takes the same step."""
     den, cutoff32 = _annealed(cfg, ts.n_updates)
     cutoff = float(cutoff32)
     inv_cutoff = float(np.float32(1.0) / cutoff32)
     g = replay_flat.sample_ids(frep, generator, mini_batch or cfg.mini_batch_size)
     rows = replay_flat.gather(frep, g)
-    scale = _insert_scale(cfg, ts, frep)
+    scale = _insert_scale(cfg, ts, frep, group=group)
 
     ts.opt.zero_grad(set_to_none=True)
     out = ts.net(_prep_obs(cfg, ts, rows["obs"]))                    # (n, na[, A])
@@ -478,10 +498,18 @@ def update_experience(cfg: VracerConfig, ts: TrainState, frep, generator,
 
     loss, metrics = _loss_experience(cfg, ts, out, rows, vtg_next, scale, cutoff)
     loss.backward()
-    clip_by_global_norm([p.grad for p in ts.net.parameters()], cfg.max_grad_norm)
+    grads = [p.grad for p in ts.net.parameters()]
+    if group is not None:
+        _copy_(grads, group.pmean(grads))
+    clip_by_global_norm(grads, cfg.max_grad_norm)
     ts.opt.step()
 
-    frac_off = replay_flat.off_policy_fraction(frep)
+    if group is None:
+        frac_off = replay_flat.off_policy_fraction(frep)
+    else:
+        n_off, n_live = replay_flat.off_policy_sums(frep)
+        n_off, n_live = group.psum([n_off, torch.tensor(n_live, device=n_off.device)])
+        frac_off = n_off.to(torch.float32) / torch.clamp(n_live, min=1).to(torch.float32)
     bdt = np.float64 if ts.beta.dtype == torch.float64 else np.float32
     lr_t = bdt(cfg.lr) / bdt(den)
     keep = float(bdt(1.0) - lr_t)
@@ -490,6 +518,12 @@ def update_experience(cfg: VracerConfig, ts: TrainState, frep, generator,
     beta = torch.clamp(beta, 0.0, 1.0)
     metrics.update(beta=beta, cutoff=cutoff, frac_off_replay=frac_off, rew_scale=scale)
     return dataclasses.replace(ts, beta=beta, n_updates=ts.n_updates + 1), frep, metrics
+
+
+@torch.no_grad()
+def _copy_(dst, src):
+    for d, s in zip(dst, src):
+        d.copy_(s)
 
 
 @torch.no_grad()
@@ -503,15 +537,23 @@ def clip_by_global_norm(grads, max_norm: float):
     return g_norm
 
 
-def update(cfg: VracerConfig, ts: TrainState, batch):
+def update(cfg: VracerConfig, ts: TrainState, batch, group=None):
     """One gradient step on a sampled episode batch; returns (ts, metrics).
-    The network and the optimizer state are updated in place."""
+    The network and the optimizer state are updated in place.  Under
+    ``group`` the rank's gradients and its minibatch's far-policy fraction
+    are averaged over the ranks (one collective) before the clip, Adam and
+    beta, as the JAX mesh's episode-mode update does
+    (marlpde_tpu/parallel/mesh.py:164-185)."""
     n_upd = torch.tensor(float(ts.n_updates), dtype=torch.float32, device=ts.beta.device)
     cutoff = cfg.cutoff_scale / (1.0 + cfg.annealing_rate * n_upd)
     ts.opt.zero_grad(set_to_none=True)
     loss, metrics = _loss(cfg, ts.net, ts, batch, cutoff)
     loss.backward()
-    clip_by_global_norm([p.grad for p in ts.net.parameters()], cfg.max_grad_norm)
+    grads = [p.grad for p in ts.net.parameters()]
+    if group is not None:
+        *avg, metrics["frac_far"] = group.pmean(grads + [metrics["frac_far"]])
+        _copy_(grads, avg)
+    clip_by_global_norm(grads, cfg.max_grad_norm)
     ts.opt.step()
 
     # REFER beta adaptation (paper sec. 3.2): push frac_far toward target

@@ -4,7 +4,7 @@
 A complete checkpoint restores training exactly where it stopped.  Pieces:
 
   * train state  — module and Adam state_dicts, REFER beta, the update
-                   counter and both normalizers (latest.pt)
+                   counter and both normalizers (latest.pt, or latest_dcp/)
   * history      — per-generation curves (history.json, the JAX schema)
   * meta         — the trainer's torch.Generator state and the gen /
                    experiences / episode / live-experience counters, plus the
@@ -13,9 +13,19 @@ A complete checkpoint restores training exactly where it stopped.  Pieces:
   * replay       — either replay layout (replay.pt), opt-in like korali's
                    "Experience Replay Serialize" because it is large
 
-The train-state file is ``latest.pt``, so a JAX ``latest.pkl`` is never taken
-for it.  The JAX package's orbax backend (multi-host TPU plumbing) is not
-ported.
+Backends, per call or by MARLPDE_CKPT_BACKEND as in the JAX package
+(checkpoint.py:35-86): "pickle" (the default) writes ``latest.pt`` with
+torch.save, so a JAX ``latest.pkl`` is never taken for it; "orbax" selects
+the multi-process backend, torch.distributed.checkpoint in ``latest_dcp/``.
+Under a process group every rank takes part in its save and its restore (as
+in orbax), tensors that every rank holds alike are written once, and rank 0
+alone touches the directory around them; without one it runs in the one
+process.  Its restore loads into a template built from ``rl_cfg``, as orbax
+restores into one, so the Adam moments are written even before the first
+step (as zeros, which Adam's first step treats as a fresh state).  Every rank
+holds the whole train state, so "orbax" stores what rank 0's ``latest.pt``
+stores; it is there so that a run that sets MARLPDE_CKPT_BACKEND=orbax runs
+on both packages, and it is the layout a sharded train state would need.
 """
 
 from __future__ import annotations
@@ -23,12 +33,28 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from marlpde_tpu_torch.rl import running_stats, vracer
+
+_DCP_DIR = "latest_dcp"
+
+
+def resolve_backend(backend: Optional[str] = None) -> str:
+    """``backend``, else MARLPDE_CKPT_BACKEND, else "pickle"."""
+    backend = backend or os.environ.get("MARLPDE_CKPT_BACKEND", "pickle")
+    if backend not in ("pickle", "orbax"):
+        raise ValueError(f"[checkpoint] unknown backend {backend!r}")
+    return backend
+
+
+def _primary() -> bool:
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _save(obj, fname: str):
@@ -39,36 +65,96 @@ def _save(obj, fname: str):
     os.replace(tmp, fname)
 
 
-def save_train_state(path: str, ts: vracer.TrainState, history: Optional[dict] = None):
+def dcp_state(ts: vracer.TrainState) -> dict:
+    """The train state as the flat dict of tensors the "orbax" backend saves
+    and restores in place: the module's, every parameter's Adam step and
+    moments (zeros before the first step), beta, the update counter and both
+    normalizers."""
+    d = {f"net.{k}": v for k, v in ts.net.state_dict().items()}
+    for i, p in enumerate(ts.net.parameters()):
+        st = ts.opt.state.get(p) or {}
+        d[f"adam.{i}.step"] = st.get("step", torch.zeros((), dtype=torch.float32))
+        for k in ("exp_avg", "exp_avg_sq"):
+            d[f"adam.{i}.{k}"] = st.get(k, torch.zeros_like(p))
+    d["beta"] = ts.beta
+    d["n_updates"] = torch.tensor(int(ts.n_updates), dtype=torch.int64)
+    for name in ("obs_stats", "rew_stats"):
+        for f, v in dataclasses.asdict(getattr(ts, name)).items():
+            d[f"{name}.{f}"] = v
+    return d
+
+
+def save_train_state(path: str, ts: vracer.TrainState, history: Optional[dict] = None,
+                     backend: Optional[str] = None):
+    """The train state (and ``history``) under ``path``.  With the "orbax"
+    backend every rank of a process group calls this; rank 0 writes the
+    history."""
     os.makedirs(path, exist_ok=True)
-    _save(dict(net=ts.net.state_dict(), opt=ts.opt.state_dict(), beta=ts.beta,
-               n_updates=int(ts.n_updates),
-               obs_stats=dataclasses.asdict(ts.obs_stats),
-               rew_stats=dataclasses.asdict(ts.rew_stats)),
-          os.path.join(path, "latest.pt"))
-    if history is not None:
+    if resolve_backend(backend) == "orbax":
+        import torch.distributed.checkpoint as dcp
+        d = os.path.join(path, _DCP_DIR)
+        tmp = d + ".tmp"
+        # the save's first collective orders rank 0's removal before any write
+        if _primary():
+            shutil.rmtree(tmp, ignore_errors=True)
+        dcp.save(dcp_state(ts), checkpoint_id=tmp, no_dist=not dist.is_initialized())
+        if _primary():
+            shutil.rmtree(d, ignore_errors=True)
+            os.replace(tmp, d)
+    else:
+        _save(dict(net=ts.net.state_dict(), opt=ts.opt.state_dict(), beta=ts.beta,
+                   n_updates=int(ts.n_updates),
+                   obs_stats=dataclasses.asdict(ts.obs_stats),
+                   rew_stats=dataclasses.asdict(ts.rew_stats)),
+              os.path.join(path, "latest.pt"))
+    if history is not None and _primary():
         with open(os.path.join(path, "history.json"), "w") as f:
             json.dump(history, f)
 
 
-def load_train_state(path: str, rl_cfg, device=None) -> Optional[vracer.TrainState]:
+def load_train_state(path: str, rl_cfg, device=None,
+                     backend: Optional[str] = None) -> Optional[vracer.TrainState]:
     """The restored TrainState on ``device`` (the CPU by default), or None if
-    absent."""
+    absent.  The "orbax" backend restores into a template built from
+    ``rl_cfg`` in the dtype of the saved beta; under a process group every
+    rank calls it."""
+    device = device or "cpu"
+    odir = os.path.join(path, _DCP_DIR)
+    if resolve_backend(backend) == "orbax" and os.path.isdir(odir):
+        import torch.distributed.checkpoint as dcp
+        meta = dcp.FileSystemReader(odir).read_metadata()
+        dtype = meta.state_dict_metadata["beta"].properties.dtype
+        ts = _template(rl_cfg, dtype, torch.device(device))
+        d = dcp_state(ts)
+        dcp.load(d, checkpoint_id=odir, no_dist=not dist.is_initialized())
+        ts.net.load_state_dict({k[4:]: v for k, v in d.items() if k.startswith("net.")})
+        ts.opt.load_state_dict(dict(
+            state={i: {k: d[f"adam.{i}.{k}"] for k in ("step", "exp_avg", "exp_avg_sq")}
+                   for i in range(len(list(ts.net.parameters())))},
+            param_groups=ts.opt.state_dict()["param_groups"]))
+        stats = {name: running_stats.RunningStats(
+            **{f: d[f"{name}.{f}"] for f in ("mean", "m2", "count")})
+            for name in ("obs_stats", "rew_stats")}
+        return dataclasses.replace(ts, beta=d["beta"], n_updates=int(d["n_updates"]), **stats)
     fname = os.path.join(path, "latest.pt")
     if not os.path.exists(fname):
         return None
-    d = torch.load(fname, map_location=device or "cpu", weights_only=True)
+    d = torch.load(fname, map_location=device, weights_only=True)
     beta = d["beta"]
-    # the initial draw is overwritten at once; a private generator keeps it
-    # off the global stream
-    ts = vracer.init_train(rl_cfg, torch.Generator(device=beta.device).manual_seed(0),
-                           dtype=beta.dtype, device=beta.device)
+    ts = _template(rl_cfg, beta.dtype, beta.device)
     ts.net.load_state_dict(d["net"])
     ts.opt.load_state_dict(d["opt"])
     return dataclasses.replace(
         ts, beta=beta, n_updates=int(d["n_updates"]),
         obs_stats=running_stats.RunningStats(**d["obs_stats"]),
         rew_stats=running_stats.RunningStats(**d["rew_stats"]))
+
+
+def _template(rl_cfg, dtype, device) -> vracer.TrainState:
+    # the initial draw is overwritten at once; a private generator keeps it
+    # off the global stream
+    return vracer.init_train(rl_cfg, torch.Generator(device=device).manual_seed(0),
+                             dtype=dtype, device=device)
 
 
 def load_history(path: str) -> Optional[dict]:

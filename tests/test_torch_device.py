@@ -1,8 +1,9 @@
 """The port's entry points run on the card unless the caller asks for the CPU:
 ``device.resolve_device(None)``, ``registry.make_env`` (every preset) and
 ``run.main`` / ``run.make_workload`` without a device (training, KS, the
---test stage, cmaes-burger and --learner apg), ``ddp.pipeline.generate_dns``
-and ``cmaes.make_burger_cs_objective`` raise where torch.cuda is not
+--test stage, cmaes-burger, --learner apg and --mesh), ``ddp.pipeline.generate_dns``,
+``cmaes.make_burger_cs_objective`` and the multi-process dry run
+(``parallel.dryrun``, both modes) raise where torch.cuda is not
 available, and ``device="cpu"`` runs.  torch.cuda.is_available is patched to
 False, so these hold on a machine with a card too.  No JAX is imported."""
 
@@ -77,6 +78,28 @@ def test_main_without_device_raises_and_writes_nothing(no_card, tmp_path, monkey
     with pytest.raises(RuntimeError, match=NO_CARD):
         trun.main(TINY)
     assert list(tmp_path.iterdir()) == []
+
+
+def test_main_mesh_without_device_raises_and_starts_nothing(no_card, tmp_path, monkeypatch):
+    """--mesh resolves the rank's device before it starts a process group."""
+    import torch.distributed as dist
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match=NO_CARD):
+        trun.main(TINY + ["--mesh"])
+    assert list(tmp_path.iterdir()) == [] and not dist.is_initialized()
+
+
+@pytest.mark.parametrize("mode", [[], ["--cli", *TINY, "--mesh"]], ids=["dryrun", "cli"])
+def test_dryrun_without_device_raises_and_starts_no_rank(no_card, monkeypatch, mode):
+    """The dry run resolves the device in the parent, before any rank; with
+    --device cuda too.  Ranks would start through subprocess.Popen."""
+    from marlpde_tpu_torch.parallel import dryrun
+    started = []
+    monkeypatch.setattr(dryrun.subprocess, "Popen", lambda *a, **kw: started.append(a))
+    for device in ([], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match=NO_CARD):
+            dryrun.main(["--world", "2", *device, *mode])
+    assert started == []
 
 
 def test_main_on_the_cpu_when_asked(no_card, tmp_path, monkeypatch, capsys):

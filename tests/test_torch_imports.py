@@ -1,6 +1,6 @@
 """The port imports nothing of JAX and nothing of the JAX package: in a fresh
 interpreter where ``import jax`` and ``import marlpde_tpu`` fail, every module
-of marlpde_tpu_torch and chip_smoke.py import."""
+of marlpde_tpu_torch (``parallel/`` too) and chip_smoke.py import."""
 
 import os
 import subprocess
@@ -17,6 +17,7 @@ names = sorted(m.name for m in pkgutil.walk_packages(marlpde_tpu_torch.__path__,
                                                       "marlpde_tpu_torch."))
 for name in names + ["chip_smoke"]:
     importlib.import_module(name)
+assert {"marlpde_tpu_torch.parallel.mesh", "marlpde_tpu_torch.parallel.dryrun"} <= set(names)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")
                 and sys.modules[m] is not None)
 assert not leaked, leaked

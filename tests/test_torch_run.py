@@ -1,6 +1,6 @@
 """The port's CLI (marlpde_tpu_torch/run.py) against the JAX CLI: the parser's
 flags, ``make_workload`` field by field, a tiny training run through ``main``
-with resume, and the refusals of what the port does not cover."""
+with resume, and the presets and flags ported after the first slices."""
 
 import argparse
 import dataclasses
@@ -26,10 +26,12 @@ TINY = ("burger-marl --nagents 4 --specreward --dforce --ic turbulence --NDNS 64
 
 # the flags that cut the ported surfaces of test_unported_presets_and_flags_raise
 # to a tiny run: burger-marl with 2 agents for 2 APG iterations of 2 episodes,
-# and 2 CMA-ES generations
+# the same for 2 --mesh generations at world 1, and 2 CMA-ES generations
 TINY_RUNS = {
     "apg": ("--nagents 2 --NDNS 32 --N 8 --NA 8 --dt 0.01 --T 0.05 --episodelength 5 "
             "--numenvs 2 --NE 20 --width 8").split(),
+    "mesh": ("--nagents 2 --NDNS 32 --N 8 --NA 8 --dt 0.01 --T 0.05 --episodelength 5 "
+             "--numenvs 2 --NE 20 --width 8").split(),
     "cmaes-burger": "--NDNS 32 --N 8 --dt 0.01 --T 0.05 --episodelength 5 --numgen 2".split(),
 }
 
@@ -110,28 +112,30 @@ def test_tiny_main_trains_resumes_and_prints_one_json_line(tmp_path, monkeypatch
     BARE + ["--test", "--bf16"], ["cmaes-burger", "--test"]],
     ids=lambda a: " ".join(a[:1] + a[-2:]))
 def test_unported_presets_and_flags_raise(argv, tmp_path, monkeypatch, capsys):
-    """What the port does not cover (training with --mesh) raises, naming
-    ROADMAP, before anything is built or written; the presets and flags
-    ported since (the diffusion, advection and Laplace presets,
-    --save-episodes, --bf16) pass the refusal, and --learner apg and
-    cmaes-burger (also under --test) pass it and run, here at a tiny size
-    (TINY_RUNS), each printing its one JSON line."""
+    """Nothing is refused any more: the presets and flags ported after the
+    first slices (the diffusion, advection and Laplace presets,
+    --save-episodes, --bf16) parse, and --mesh, --learner apg and
+    cmaes-burger (also under --test) run, here at a tiny size (TINY_RUNS),
+    each printing its one JSON line; --mesh's has the JAX CLI's keys
+    (marlpde_tpu/run.py:493-495), at a world of 1."""
     monkeypatch.chdir(tmp_path)
-    if "--mesh" in argv:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            trun.main(argv, device="cpu")
-        assert list(tmp_path.iterdir()) == []
-        return
-    trun._refuse_unported(trun.build_parser().parse_args(argv))
+    trun.build_parser().parse_args(argv)
     assert argv[0] in trun.RL_DEFAULTS or argv[0] == "cmaes-burger"
-    kind = "apg" if "apg" in argv else argv[0]
+    kind = "apg" if "apg" in argv else "mesh" if "--mesh" in argv else argv[0]
     if kind not in TINY_RUNS:
         assert list(tmp_path.iterdir()) == []
         return
     trun.main(argv + TINY_RUNS[kind], device="cpu")
     lines = _json_lines(capsys.readouterr().out)
     assert len(lines) == 1 and lines[0]["workload"] == argv[0]
-    if kind == "apg":
+    if kind == "mesh":
+        assert list(lines[0]) == ["workload", "mesh_devices", "final_mean_return",
+                                  "generations"]
+        assert lines[0]["mesh_devices"] == 1 and lines[0]["generations"] == 2
+        assert np.isfinite(lines[0]["final_mean_return"])
+        assert {p.name for p in (tmp_path / "_result_burger-marl_0").iterdir()} == {
+            "latest.pt", "history.json", "meta.npz"}
+    elif kind == "apg":
         assert lines[0]["learner"] == "apg" and lines[0]["iterations"] == 2
         assert np.isfinite(lines[0]["final_mean_return"])
         assert {p.name for p in (tmp_path / "_result_burger-marl_0").iterdir()} == {

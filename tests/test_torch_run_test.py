@@ -188,10 +188,11 @@ def test_training_only_flags_are_ignored_by_the_test_stage_as_in_jax(flag, tmp_p
     """The JAX CLI skips its mesh and apg branches under --test, and its test
     stage never reads --save-episodes' directory (marlpde_tpu/run.py:388-390,
     458,498): the port's summary equals the JAX one.  --bf16 is taken by the
-    test stage too; training refuses --mesh, trains with --save-episodes, and
-    with --learner apg trains by APG and writes a checkpoint that --test
-    reads, as the JAX CLI does (the same keys and iteration count: the
-    weights are drawn by each package's own generator)."""
+    test stage too.  Training with --mesh (the JAX CLI on its 8 devices, the
+    port at a world of 1) and with --learner apg writes a checkpoint that
+    --test reads, as the JAX CLI does (the same keys and generation or
+    iteration count: the weights are drawn by each package's own
+    generator); --save-episodes has no more to check here."""
     jdir, tdir = tmp_path / "j", tmp_path / "t"
     jdir.mkdir()
     tdir.mkdir()
@@ -205,26 +206,31 @@ def test_training_only_flags_are_ignored_by_the_test_stage_as_in_jax(flag, tmp_p
                         tdir, monkeypatch, capsys)
     assert got_bf16 == got
     if flag[0] == "--save-episodes":
-        trun._refuse_unported(trun.build_parser().parse_args(BURGER + flag))
-    elif flag[0] == "--mesh":
-        with pytest.raises(NotImplementedError, match=flag[0]):
-            trun.main(BURGER + flag, device="cpu")
-    else:
-        apg = BURGER + flag + ["--NE", "20", "--numenvs", "2", "--run", "5"]
-        monkeypatch.chdir(jdir)
-        jrun.main(apg)
-        want = _json_lines(capsys.readouterr().out)
-        monkeypatch.chdir(tdir)
-        ts, rep, hist = trun.main(apg, device="cpu")
-        got = _json_lines(capsys.readouterr().out)
-        assert rep is None and len(want) == len(got) == 1 and list(got[0]) == list(want[0])
-        assert got[0] == {"workload": "burger", "learner": "apg", "iterations": 2,
+        return
+    # 8 episodes a generation divide the JAX CLI's 8 devices; 2 generations
+    train = BURGER + flag + (["--NE", "80", "--numenvs", "8"] if flag[0] == "--mesh"
+                             else ["--NE", "20", "--numenvs", "2"]) + ["--run", "5"]
+    monkeypatch.chdir(jdir)
+    jrun.main(train)
+    want = _json_lines(capsys.readouterr().out)
+    monkeypatch.chdir(tdir)
+    ts, rep, hist = trun.main(train, device="cpu")
+    got = _json_lines(capsys.readouterr().out)
+    assert len(want) == len(got) == 1 and list(got[0]) == list(want[0])
+    if flag[0] == "--mesh":
+        assert got[0] == {"workload": "burger", "mesh_devices": 1, "generations": 2,
                           "final_mean_return": hist["mean_return"][-1]}
-        assert want[0]["iterations"] == 2 and np.isfinite(got[0]["final_mean_return"])
-        got, want = _both(BURGER + ["--run", "5", "--test", "--testepisodes", "2"], jdir, tdir,
-                          monkeypatch, capsys)
-        assert len(got["test_returns"]) == 2 and np.isfinite(got["test_mean_return"])
-        assert _files(tdir / "_result_burger_5") == _files(jdir / "_result_burger_5")
+        assert want[0]["generations"] == 2 and rep.obs.shape[0] > 0
+    else:
+        assert rep is None and got[0] == {"workload": "burger", "learner": "apg",
+                                          "iterations": 2,
+                                          "final_mean_return": hist["mean_return"][-1]}
+        assert want[0]["iterations"] == 2
+    assert np.isfinite(got[0]["final_mean_return"])
+    got, want = _both(BURGER + ["--run", "5", "--test", "--testepisodes", "2"], jdir, tdir,
+                      monkeypatch, capsys)
+    assert len(got["test_returns"]) == 2 and np.isfinite(got["test_mean_return"])
+    assert _files(tdir / "_result_burger_5") == _files(jdir / "_result_burger_5")
 
 
 @pytest.mark.parametrize("argv", [["diffusion-simple", "--test"], ["laplace", "--test"],
