@@ -24,6 +24,18 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    each) through registry.make_env / trainer.train, with launch counts;
 5. [breakdown] one more such generation's phases, and [small] a small
    deterministic collection on the card against the same on the CPU;
+5a. [graphs] the CUDA graphs of the training path (utils/graphs.py) against
+   the step functions called directly: for run-918 (experience mode, both
+   kernels), the fused flagship (episode mode, 1024 envs), run-926 KS and
+   run-927 burger-fd, two generations of GRAPH_UPDATES updates each way
+   from one state, held bit for bit (trajectories, final states,
+   parameters, Adam's state, beta, the counter, the generator, every replay
+   buffer), with seconds per collection and ms per update both ways (CUDA
+   events), the kernels' launches counted per replay, and under
+   torch.profiler the host's launches per macro-step and per update and the
+   device's busy share under graphs; then a graphed resume through the CLI
+   (run-918 flags: two generations straight against one, a checkpoint with
+   the replay, --resume and one more), held bit for bit;
 6. [cli] the run-918 flagship through ``python -m marlpde_tpu_torch.run``'s
    ``main`` (experience mode, korali's ledger, testing, checkpoints,
    diagnostics) for 5 generations, then ``--resume`` for a 6th, in a fresh
@@ -97,8 +109,12 @@ that only the mesh paths run: [mesh]'s update rows, [mesh-2]'s run-918 CLI at
 its dry run's small flagship (ABCN B=1 at N=16; MLP width 32, DRYRUN_ROWS).
 A [timing] line gives each phase's seconds.
 
-Launch counts are set to 0 just before each path and read just after; the
-comparisons of a kernel with its plain version are not counted.  The
+Every training path runs its updates and its collections' macro-steps as
+CUDA graph replays (the mesh paths their collections only: their updates
+all-reduce eagerly), and a replay adds to each kernel's count the launches
+its capture saw.  Launch counts are set to 0 just before each path and read
+just after; the comparisons of a kernel with its plain version are not
+counted.  The
 flagship Burgers paths (main, cli, cli_w256, cli_test, mesh, mesh2; mesh2's
 counts are its ranks' summed) must launch both kernels; the paths ks,
 ks_test, fd, fd_test, variants, simple, simple_test, bf16 and apg the MLP
@@ -149,6 +165,9 @@ RUN_926 = ("ks --N 16 --NA 16 --ndns 16 --sigma-max 5 --iex 0.01 --numenvs 16 --
            "--fused --testepisodes 16 --run 926").split()
 # experience-mode updates timed by each [*-breakdown] (its ms per update)
 BREAKDOWN_UPDATES = 500
+# [graphs]: the updates of each of its generations, and of its profiled window
+GRAPH_UPDATES = 100
+PROFILED_UPDATES = 20
 KS_AGREE_TOL = 1e-4  # relative to each tensor's max |value|: float32, cuFFT against pocketfft
 # the run-vracer-burger-fd.py config (bench.py:79-84): N_dns 1024, N = NA = 256,
 # turbulence IC, MSE reward, width 32, iex 0.005, at the CLI's default mbsize.
@@ -570,7 +589,7 @@ def phase_main_path(env):
     check(np.isfinite(hist["mean_return"][0]), "generation 1 return is not finite")
     check(hist["mean_ep_len"][0] == env.episode_length, "generation 1 episodes were cut")
     check(all(n == 200 for n in hist["updates"]), f"n_upd per generation {hist['updates']}")
-    check(ts.n_updates == 200 * GENERATIONS, f"n_updates {ts.n_updates}")
+    check(ts.n_updates == 200 * GENERATIONS, f"n_updates {int(ts.n_updates)}")
     check(all(torch.isfinite(p).all() for p in ts.net.parameters()), "params not finite")
     for m in hist["metrics"]:
         check(m and all(np.isfinite(v) for v in m.values()), f"metrics not finite: {m}")
@@ -586,6 +605,7 @@ def phase_breakdown(env, ts, rep, rl_cfg):
     import torch
     from marlpde_tpu_torch.envs import rollout
     from marlpde_tpu_torch.rl import replay, vracer
+    from marlpde_tpu_torch.train import trainer
 
     g = torch.Generator(device=ts.beta.device).manual_seed(7)
 
@@ -601,15 +621,12 @@ def phase_breakdown(env, ts, rep, rl_cfg):
     (ts, rep), t_observe = timed(lambda: (vracer.observe_episodes(rl_cfg, ts, traj),
                                           replay.add_episodes(rep, traj)))
 
-    def updates():
-        t = ts
-        for _ in range(200):
-            t, _ = vracer.update(rl_cfg, t, replay.sample_episodes(
-                rep, g, rl_cfg.mini_batch_episodes))
-        return t
-    _, t_update = timed(updates)
-    print(f"[breakdown] collect {t_collect:.3f} s, normalizers + replay insert "
-          f"{t_observe:.3f} s, 200 updates {t_update:.3f} s")
+    # the update graph for this generator is captured untimed, by one update
+    trainer.run_updates(rl_cfg, ts, rep, g, 1)
+    _, t_update = timed(lambda: trainer.run_updates(rl_cfg, ts, rep, g, 200))
+    print(f"[breakdown] collect {t_collect:.3f} s (the first with this generator: its "
+          f"capture included), normalizers + replay insert {t_observe:.3f} s, 200 updates "
+          f"{t_update:.3f} s (graph replays)")
 
 
 def phase_small_agreement(dev):
@@ -640,6 +657,226 @@ def phase_small_agreement(dev):
           f"to each tensor's max |value| (tolerance 1e-4: float32 kernels against the "
           f"CPU's plain versions over 5 macro-steps)")
     check(worst <= 1e-4, f"card and CPU collections disagree: {worst:.3e}")
+
+
+def _same(a, b):
+    """Whether two tensors hold the same bits, NaN where NaN; and the
+    largest difference where both are finite."""
+    import torch
+    if a.is_complex():
+        a, b = torch.view_as_real(a), torch.view_as_real(b)
+    if not a.is_floating_point():
+        return torch.equal(a, b), 0.0
+    both_nan = torch.isnan(a) & torch.isnan(b)
+    same = bool(((a == b) | both_nan).all())
+    fin = torch.isfinite(a) & torch.isfinite(b)
+    diff = (a - b).abs()[fin].max().item() if fin.any() else 0.0
+    return same, diff
+
+
+def _profiled(fn):
+    """(wall seconds, device busy seconds, host launches by runtime call, the
+    mean host µs of one cudaLaunchKernel call, the profiler's own seconds) of
+    ``fn`` under torch.profiler (device activity only: kernels and the
+    runtime calls), synchronized at both ends."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    events = prof.key_averages()
+    device_us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+                    for e in events if e.device_type == torch.autograd.DeviceType.CUDA)
+    calls = {e.key: e.count for e in events
+             if e.key.startswith("cu") and ("Launch" in e.key or "Memcpy" in e.key
+                                           or "Memset" in e.key)}
+    launch_us = [e.cpu_time_total / e.count for e in events if e.key == "cudaLaunchKernel"]
+    return (wall, device_us / 1e6, calls, launch_us[0] if launch_us else float("nan"),
+            time.perf_counter() - t0 - wall)
+
+
+def _graphs_generation(env, rl_cfg, ts, rep, g, B, base, eager):
+    """One generation (collection, normalizers + insert, GRAPH_UPDATES
+    updates) through the graphs, or, with ``eager``, the step functions
+    called directly: (ts, traj, final state, collection s, ms per update, the
+    kernels' launches in the collection and in the updates), timed with CUDA
+    events."""
+    import torch
+    from marlpde_tpu_torch.envs import rollout
+    from marlpde_tpu_torch.kernels import abcn, mlp
+    from marlpde_tpu_torch.train import trainer
+    from marlpde_tpu_torch.utils import graphs
+
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    counts = []
+    with graphs.eager() if eager else contextlib.nullcontext():
+        counts.append((abcn.launches, mlp.launches))
+        events[0].record()
+        traj, final = rollout.collect_episodes(env, rl_cfg, ts, g, B, base)
+        events[1].record()
+        counts.append((abcn.launches, mlp.launches))
+        ts, rep = trainer.insert_generation(rl_cfg, ts, rep, traj)
+        counts.append((abcn.launches, mlp.launches))
+        events[2].record()
+        trainer.run_updates(rl_cfg, ts, rep, g, GRAPH_UPDATES)
+        events[3].record()
+        counts.append((abcn.launches, mlp.launches))
+    events[3].synchronize()
+    d = lambda i: tuple(b - a for a, b in zip(counts[i], counts[i + 1]))
+    return (ts, traj, final, events[0].elapsed_time(events[1]) / 1e3,
+            events[2].elapsed_time(events[3]) / GRAPH_UPDATES, d(0), d(2))
+
+
+def phase_graphs(env_flagship, workdir):
+    """The training path's CUDA graphs against the step functions called
+    directly, on the card: for run-918 (experience mode, both kernels), the
+    fused flagship (episode mode, 1024 envs), run-926 KS and run-927
+    burger-fd, two generations from one state (after an eager collection
+    and insert), each path on its own copy of the train state, replay and
+    generator.  Then a graphed resume through the CLI."""
+    import copy
+    import torch
+    from marlpde_tpu_torch import run
+    from marlpde_tpu_torch.envs import ks_env, rollout
+    from marlpde_tpu_torch.rl import vracer
+    from marlpde_tpu_torch.train import trainer
+    from marlpde_tpu_torch.utils import graphs
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip().splitlines()[0]
+    configs = []
+    for label, argv in (("run-918", RUN_918), ("run-926", RUN_926), ("run-927", RUN_927)):
+        pools, restore = _timed_pools(ks_env) if label == "run-926" else ({}, lambda: None)
+        try:
+            env, rl_cfg, tc = run.make_workload(run.build_parser().parse_args(argv))
+        finally:
+            restore()
+        configs.append((label, env, rl_cfg, tc.num_envs))
+    configs.insert(1, ("fused flagship", env_flagship,
+                       trainer.default_rl_config(env_flagship, width=128), NUM_ENVS))
+    failures = []
+    for label, env, rl_cfg, B in configs:
+        t_config = time.perf_counter()
+        dev = env.device
+        g0 = torch.Generator(device=dev).manual_seed(11)
+        ts = vracer.init_train(rl_cfg, g0, device=dev)
+        rep = trainer.make_replay(env, rl_cfg)
+        with graphs.eager():
+            traj, _ = rollout.collect_episodes(env, rl_cfg, ts, g0, B, 0)
+            ts, rep = trainer.insert_generation(rl_cfg, ts, rep, traj)
+        runs = {}
+        for path in ("eager", "graphs"):
+            t, r = copy.deepcopy(ts), graphs.clone(rep)
+            g = torch.Generator(device=dev)
+            g.set_state(g0.get_state())
+            gens = []
+            for k in (1, 2):
+                t, traj, final, col_s, upd_ms, col_n, upd_n = _graphs_generation(
+                    env, rl_cfg, t, r, g, B, k * B, eager=path == "eager")
+                gens.append((traj, final, col_s, upd_ms, col_n, upd_n))
+            runs[path] = (t, r, g, gens)
+        (te, re_, ge, gens_e), (tg, rg, gg, gens_g) = runs["eager"], runs["graphs"]
+        pairs = []
+        for (tr_e, fin_e, *_), (tr_g, fin_g, *_) in zip(gens_e, gens_g):
+            pairs += [(f"traj.{k}", tr_e[k], tr_g[k]) for k in tr_e]
+            pairs += [(f"final.{i}", a, b) for i, (a, b) in enumerate(
+                zip(graphs.tensors(fin_e), graphs.tensors(fin_g)))]
+        pairs += [(f"param.{n}", p, q) for (n, p), q in zip(te.net.named_parameters(),
+                                                            tg.net.parameters())]
+        for i, (a, b) in enumerate(zip(list(te.opt.state.values()), list(tg.opt.state.values()))):
+            pairs += [(f"adam.{i}.{k}", a[k], b[k]) for k in a]
+        pairs += [("beta", te.beta, tg.beta), ("n_updates", te.n_updates, tg.n_updates),
+                  ("generator", ge.get_state(), gg.get_state())]
+        pairs += [(f"replay.{f.name}", getattr(re_, f.name), getattr(rg, f.name))
+                  for f in dataclasses.fields(rep) if isinstance(getattr(re_, f.name), torch.Tensor)]
+        pairs += [(f"stats.{i}", a, b) for i, (a, b) in enumerate(zip(
+            graphs.tensors((te.obs_stats, te.rew_stats)), graphs.tensors((tg.obs_stats, tg.rew_stats))))]
+        verdict = [(name, *_same(a, b)) for name, a, b in pairs]
+        differ = [(name, diff) for name, same, diff in verdict if not same]
+        (_, _, col_e, upd_e, coln_e, updn_e), (_, _, col_g, upd_g, coln_g, updn_g) = (
+            gens_e[1], gens_g[1])
+        T = env.episode_length
+        print(f"[graphs] {label} ({smi}): 2 generations of {B} envs x {T} macro-steps and "
+              f"{GRAPH_UPDATES} {rl_cfg.minibatch_mode}-mode updates from one state, graphs "
+              f"against eager: {len(verdict) - len(differ)} of {len(verdict)} tensors bitwise "
+              f"equal (trajectories, final states, parameters, Adam moments and steps, beta, "
+              f"the counter, the generator, every replay buffer incl. sv, vtg, rho)"
+              + (f"; differ: {differ}" if differ else ""), flush=True)
+        print(f"[graphs] {label} generation 2: collection {col_g:.4f} s graphed, {col_e:.4f} s "
+              f"eager ({col_e / col_g:.2f}x); {upd_g:.4f} ms per update graphed, {upd_e:.4f} ms "
+              f"eager ({upd_e / upd_g:.2f}x) (CUDA events); kernel launches abcn/mlp: "
+              f"collection {coln_g} graphed, {coln_e} eager; updates {updn_g} graphed, "
+              f"{updn_e} eager", flush=True)
+        check(coln_g == coln_e and updn_g == updn_e,
+              f"graphs {label}: launches counted per replay {coln_g} {updn_g} against eager "
+              f"{coln_e} {updn_e}")
+        if differ:
+            failures.append((label, differ))
+        # host launches and device busy share under graphs: one more collection
+        # and PROFILED_UPDATES updates; the eager update's launches for comparison
+        t, r, g, _ = runs["graphs"]
+        wall_c, busy_c, calls_c, _, over_c = _profiled(
+            lambda: rollout.collect_episodes(env, rl_cfg, t, g, B, 3 * B))
+        n = PROFILED_UPDATES
+        wall_u, busy_u, calls_u, _, over_u = _profiled(
+            lambda: trainer.run_updates(rl_cfg, t, r, g, n))
+        t, r, g, _ = runs["eager"]
+        with graphs.eager():
+            _, _, calls_e, launch_us, over_e = _profiled(
+                lambda: trainer.run_updates(rl_cfg, t, r, g, n))
+        host_us = 1e3 * upd_e / (sum(calls_e.values()) / n)
+        per = lambda calls, k: {name: round(v / k, 2) for name, v in sorted(calls.items())}
+        print(f"[graphs] {label} under torch.profiler: host launches per macro-step graphed "
+              f"{per(calls_c, T)}, per update graphed {per(calls_u, n)}, eager {per(calls_e, n)}; "
+              f"device busy under graphs {100 * busy_c / wall_c:.1f}% of the collection "
+              f"({wall_c:.4f} s), {100 * busy_u / wall_u:.1f}% of {n} updates "
+              f"({1e3 * wall_u / n:.4f} ms each); eager, {host_us:.2f} µs of an update's "
+              f"time per host launch, {launch_us:.2f} µs of it in the cudaLaunchKernel call "
+              f"itself (the rest Python and PyTorch's dispatch); the profiler's own "
+              f"{over_c + over_u + over_e:.1f} s", flush=True)
+        graph_launches = lambda calls: sum(v for k, v in calls.items() if "GraphLaunch" in k)
+        check(graph_launches(calls_c) == T and graph_launches(calls_u) == n,
+              f"graphs {label}: graph launches {calls_c} {calls_u}")
+        del runs
+        print(f"[graphs] {label}: {time.perf_counter() - t_config:.1f} s", flush=True)
+    _graphs_resume(workdir)
+    check(not failures, f"graphs against eager differ: {failures}")
+
+
+def _graphs_resume(workdir):
+    """Two graphed generations of the run-918 CLI straight, against one
+    generation, a checkpoint (with the replay), --resume and one more: the
+    same train state and replay, bit for bit."""
+    import torch
+    from marlpde_tpu_torch.utils import graphs
+
+    flags = RUN_918 + "--rstart 2000 --maxupd 100 --serialize-replay".split()
+    ts_a, rep_a, hist_a, _, _ = _cli(flags + ["--NE", "10000", "--run", "95"], "graphs-straight")
+    _cli(flags + ["--NE", "5000", "--run", "96"], "graphs-first")
+    ts_b, rep_b, hist_b, _, _ = _cli(flags + ["--NE", "10000", "--run", "96", "--resume"],
+                                     "graphs-resumed")
+    check(hist_a["updates"] == hist_b["updates"] == [100, 100],
+          f"graphs resume: updates {hist_a['updates']} {hist_b['updates']}")
+    pairs = [(f"param.{n}", p, q) for (n, p), q in zip(ts_a.net.named_parameters(),
+                                                         ts_b.net.parameters())]
+    for i, (a, b) in enumerate(zip(ts_a.opt.state.values(), ts_b.opt.state.values())):
+        pairs += [(f"adam.{i}.{k}", a[k], b[k]) for k in a]
+    pairs += [("beta", ts_a.beta, ts_b.beta), ("n_updates", ts_a.n_updates, ts_b.n_updates)]
+    pairs += [(f"replay.{k}", a, b) for k, a, b in zip(
+        [f.name for f in dataclasses.fields(rep_a)], graphs.tensors(rep_a), graphs.tensors(rep_b))]
+    differ = [(name, diff) for name, a, b in pairs for same, diff in [_same(a, b)] if not same]
+    print(f"[graphs] resume: run-918 flags (--rstart 2000 --maxupd 100 --serialize-replay), 2 "
+          f"generations straight against 1 + checkpoint + --resume + 1: "
+          f"{len(pairs) - len(differ)} of {len(pairs)} tensors bitwise equal (parameters, Adam, "
+          f"beta, the counter, the replay); returns {hist_a['mean_return']} against "
+          f"{hist_b['mean_return']}" + (f"; differ: {differ}" if differ else ""), flush=True)
+    check(not differ and hist_a["mean_return"] == hist_b["mean_return"],
+          f"graphs resume differs: {differ}")
 
 
 def _cli(argv, tag, also=None):
@@ -732,7 +969,7 @@ def phase_cli(workdir):
     _check_generations("cli", hist, rows, 1)
     # korali ledger: rstart 20000, expperu 0.5, cap 2500, 5000 live steps a generation
     check(hist["updates"] == [0, 0, 0, 0, 2500], f"cli updates {hist['updates']}")
-    check(ts.n_updates == 2500, f"cli n_updates {ts.n_updates}")
+    check(ts.n_updates == 2500, f"cli n_updates {int(ts.n_updates)}")
     check(hist["blowups"][0] == 0, f"cli generation 1 had {hist['blowups'][0]} blowups")
     check(len(hist["test_return"]) == 1 and np.isfinite(hist["test_return"]).all(),
           f"cli test returns {hist['test_return']}")
@@ -754,7 +991,7 @@ def phase_cli(workdir):
     _check_generations("cli-resume", hist, rows2, 6)
     check(hist["gen"] == list(range(1, 7)) and hist["updates"][5] == 2500,
           f"cli resume: gens {hist['gen']} updates {hist['updates']}")
-    check(ts.n_updates == 5000, f"cli resume n_updates {ts.n_updates}")
+    check(ts.n_updates == 5000, f"cli resume n_updates {int(ts.n_updates)}")
     _check_state_on_card("cli-resume", ts, rep)
     total = {k: launches[k] + launches2[k] for k in launches}
     return ts, rep, total
@@ -780,9 +1017,13 @@ def phase_cli_breakdown(tag, argv, ts, rep, what, gen_updates, gen_s=None):
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
+    # the collection's and the update's graphs for this env and generator are
+    # captured untimed, by one collection and one update
+    rollout.collect_episodes(env, rl_cfg, ts, g, tc.num_envs, 6 * tc.num_envs)
     (traj, _), t_collect = timed(lambda: rollout.collect_episodes(
         env, rl_cfg, ts, g, tc.num_envs, 7 * tc.num_envs))
     (ts, rep), t_insert = timed(lambda: trainer.insert_generation(rl_cfg, ts, rep, traj))
+    trainer.run_updates(rl_cfg, ts, rep, g, 1)
     _, t_update = timed(lambda: trainer.run_updates(rl_cfg, ts, rep, g, BREAKDOWN_UPDATES))
     per_update = t_update / BREAKDOWN_UPDATES
     share = t_collect / (t_collect + t_insert + gen_updates * per_update)
@@ -942,7 +1183,7 @@ def phase_ks(workdir):
     # _updates_started waits for 20000 experiences (rstart 20000 x 500 / 500):
     # 8000, 16000, 24000 after generations 1-3
     check(hist["updates"] == [0, 0, 1000], f"ks updates {hist['updates']}")
-    check(ts.n_updates == 1000, f"ks n_updates {ts.n_updates}")
+    check(ts.n_updates == 1000, f"ks n_updates {int(ts.n_updates)}")
     check(hist["blowups"] == [0, 0, 0] and _finite(hist["mean_return"]),
           f"ks blowups {hist['blowups']}, returns {hist['mean_return']}")
     check(len(hist["test_return"]) == 1 and _finite(hist["test_return"]),
@@ -1946,7 +2187,7 @@ def phase_mesh(cli_ms_per_update):
         def also(gen, ts, rep, hist):
             now, before = time.perf_counter(), marks[-1][3] if marks else 0
             upd_s = now - starts[before] if len(starts) > before else 0.0
-            marks.append((len(calls), ts.n_updates, upd_s, len(starts)))
+            marks.append((len(calls), int(ts.n_updates), upd_s, len(starts)))
 
         vracer.update_experience = update
         try:
@@ -2142,6 +2383,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         os.chdir(workdir)
         try:
+            phase_graphs(env, workdir)
+            mark("graphs")
             ts, rep, launches_cli = phase_cli(workdir)
             mark("cli")
             cli_ms = phase_cli_breakdown("cli-breakdown", RUN_918, ts, rep,

@@ -15,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from marlpde_tpu_torch.device import constant
+
 
 def periodic_spline_m(y):
     """Second-derivative spline coefficients M (same shape as y, last axis = space).
@@ -25,9 +27,12 @@ def periodic_spline_m(y):
     """
     N = y.shape[-1]
     d2 = torch.roll(y, 1, -1) - 2.0 * y + torch.roll(y, -1, -1)
-    eig = torch.as_tensor(4.0 + 2.0 * np.cos(2.0 * np.pi * np.arange(N) / N),
-                          dtype=y.dtype, device=y.device)
+    eig = constant(_circulant_eigenvalues, N, dtype=y.dtype, device=y.device)
     return torch.fft.ifft(torch.fft.fft(6.0 * d2, dim=-1) / eig, dim=-1).real
+
+
+def _circulant_eigenvalues(N: int) -> np.ndarray:
+    return 4.0 + 2.0 * np.cos(2.0 * np.pi * np.arange(N) / N)
 
 
 def _cubic(yj, yjp, Mj, Mjp, t):

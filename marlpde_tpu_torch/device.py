@@ -17,6 +17,7 @@ The MLP kernel is unaffected: it runs layer 2 in 3xTF32 either way.
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 
@@ -52,6 +53,21 @@ def reduced_matmul_precision(device: torch.device):
         torch.set_float32_matmul_precision(saved[1])
         torch.backends.cudnn.allow_tf32 = saved[2]
         set_float32_precision()
+
+
+@functools.lru_cache(maxsize=None)
+def constant(make, *args, dtype=None, device=None) -> torch.Tensor:
+    """``torch.as_tensor(make(*args), dtype=dtype, device=device)``, made once
+    per arguments (hashable: configs, grids, ints).  The env steps take the
+    constants they build with numpy (bases, grids, wavenumbers) from here: a
+    CUDA graph can capture no host-to-device copy, and it reads a constant at
+    the address it saw, so the cache is unbounded and frees none of them."""
+    return torch.as_tensor(make(*args), dtype=dtype, device=device)
+
+
+def grid_array(grid, name: str, dtype, device) -> torch.Tensor:
+    """``grid.<name>`` (``x``, ``k``, ``k1``, ``k2``) as a ``constant``."""
+    return constant(getattr, grid, name, dtype=dtype, device=device)
 
 
 def resolve_device(device=None) -> torch.device:

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from marlpde_tpu_torch.core import basis as basis_mod
+from marlpde_tpu_torch.device import constant, grid_array
 from marlpde_tpu_torch.core import ic, interp, spectral
 from marlpde_tpu_torch.envs import features
 from marlpde_tpu_torch.solvers import burger
@@ -353,14 +354,14 @@ def _coupled_rewards(cfg: BurgerEnvConfig, pool: DnsPool, state: BurgerEnvState,
     pre-step LES field; reward = reward_factor * (baseMSE - lesMSE), (B,)."""
     lcfg = cfg.les_solver
     v = state.solver.v
-    k1 = torch.as_tensor(lcfg.grid.k1, dtype=v.dtype, device=v.device)
-    k2 = torch.as_tensor(lcfg.grid.k2, dtype=v.dtype, device=v.device)
+    k1 = grid_array(lcfg.grid, "k1", v.dtype, v.device)
+    k2 = grid_array(lcfg.grid, "k2", v.dtype, v.device)
     nu = state.solver.nu[:, None]
     ub, vb = state.solver.u, v
     for _ in range(cfg.n_intermediate):
         vb = vb - cfg.dt * 0.5 * k1 * spectral.fft(ub * ub) + cfg.dt * nu * k2 * vb
         ub = spectral.irfft_real(vb)
-    newx = torch.as_tensor(lcfg.grid.x, dtype=sol.u.dtype, device=v.device)
+    newx = grid_array(lcfg.grid, "x", sol.u.dtype, v.device)
     fidx = interp.frame_index(sol.t, cfg.dt, pool.uu.shape[1])
     truth = interp.periodic_spline_eval(pool.uu[state.sidx, fidx],
                                         pool.spline_m[state.sidx, fidx], newx, cfg.L)
@@ -392,7 +393,7 @@ def step(cfg: BurgerEnvConfig, pool: DnsPool, state: BurgerEnvState, actions):
     dx = lcfg.grid.dx
     g = cfg.grid_size
     B = state.solver.u.shape[0]
-    basis = torch.as_tensor(action_basis(cfg), dtype=dtype, device=device)
+    basis = constant(action_basis, cfg, dtype=dtype, device=device)
     action_field = actions.reshape(B, -1) @ basis                 # Burger.py:437,442
     mse = not cfg.spectral_reward and not cfg.coupled
 
@@ -521,9 +522,9 @@ def step_lockstep(cfg: BurgerEnvConfig, consts, state: BurgerLockstepState, acti
     dx_l, dx_d = lcfg.grid.dx, dcfg.grid.dx
     g = cfg.grid_size
     B = state.les.u.shape[0]
-    basis = torch.as_tensor(action_basis(cfg), dtype=dtype, device=device)
+    basis = constant(action_basis, cfg, dtype=dtype, device=device)
     action_field = actions.reshape(B, -1) @ basis
-    x_l = torch.as_tensor(lcfg.grid.x, dtype=dtype, device=device)
+    x_l = grid_array(lcfg.grid, "x", dtype, device)
 
     les, dns, u_prev = state.les, state.dns, state.u_prev
     ek_sum, dns_ek = state.ek_sum, state.dns_ek_sum

@@ -53,7 +53,7 @@ def from_env_state(st: burger_env.BurgerEnvState) -> FastEnvState:
         done=st.done, cum_reward=st.cum_reward)
 
 
-@lru_cache(maxsize=32)
+@lru_cache(maxsize=None)       # unbounded: a CUDA graph reads these by address
 def _consts(cfg: burger_env.BurgerEnvConfig, dtype: torch.dtype, device: torch.device):
     """Device copies of the action basis and the reward's wavenumber columns."""
     basis = torch.as_tensor(burger_env.action_basis(cfg), dtype=dtype, device=device)

@@ -33,7 +33,7 @@ def halo_indices(N: int, num_agents: int) -> np.ndarray:
     return idx
 
 
-@lru_cache(maxsize=64)
+@lru_cache(maxsize=None)       # unbounded: a CUDA graph reads these by address
 def _halo_index_tensor(N: int, num_agents: int, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(halo_indices(N, num_agents), device=device)
 

@@ -29,6 +29,7 @@ import torch
 
 from marlpde_tpu_torch.core import basis as basis_mod
 from marlpde_tpu_torch.core import interp, spectral
+from marlpde_tpu_torch.device import constant, grid_array
 from marlpde_tpu_torch.envs import features
 from marlpde_tpu_torch.envs.burger_env import _draw_offset
 from marlpde_tpu_torch.solvers import ks
@@ -248,7 +249,7 @@ def step(cfg: KSEnvConfig, pool: KSDnsPool, state: KSEnvState, actions):
     dx = lcfg.grid.dx
     g = cfg.grid_size
     B = state.solver.u.shape[0]
-    basis = torch.as_tensor(action_basis(cfg), dtype=dtype, device=device)
+    basis = constant(action_basis, cfg, dtype=dtype, device=device)
     action_field = actions.reshape(B, -1) @ basis
 
     sol, ek_sum = state.solver, state.ek_sum
@@ -269,7 +270,7 @@ def step(cfg: KSEnvConfig, pool: KSDnsPool, state: KSEnvState, actions):
     else:
         # pointwise -(|u - truth|) mean per agent block (KS.py:360-367)
         fidx = interp.frame_index(sol.t, cfg.dt, pool.uu.shape[1])
-        x = torch.as_tensor(lcfg.grid.x, dtype=dtype, device=device)
+        x = grid_array(lcfg.grid, "x", dtype, device)
         truth = interp.periodic_spline_eval(pool.uu[state.sidx, fidx],
                                             pool.spline_m[state.sidx, fidx], x, cfg.L)
         reward = -features.agent_block_mean(torch.abs(sol.u - truth), cfg.num_agents)

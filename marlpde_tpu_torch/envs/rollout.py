@@ -1,12 +1,13 @@
 """Episode collection with the policy in the loop (port of
 marlpde_tpu/envs/rollout.py:21-144).
 
-The JAX macro-step ``lax.scan`` becomes a Python loop that writes each
-macro-step into preallocated (B, T, ...) tensors, the layout replay takes.
-Every macro-step makes one MLP-op call for all B*na agents, then one env step
-for all B envs: the whole-batch pair when the env has one (one ABCN-op call),
-else the per-env pair, which the port writes over a leading env axis in place
-of JAX's vmap.
+The JAX macro-step ``lax.scan`` under ``jax.jit`` becomes ``MacroStep``, one
+macro-step in place on preallocated buffers (the (B, T, ...) layout replay
+takes), captured once as a CUDA graph and replayed T times on the card, or
+called T times on the CPU.  Every macro-step makes one MLP-op call for all
+B*na agents, then one env step for all B envs: the whole-batch pair when the
+env has one (one ABCN-op call), else the per-env pair, which the port writes
+over a leading env axis in place of JAX's vmap.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Any, Callable
 import torch
 
 from marlpde_tpu_torch.rl import vracer
+from marlpde_tpu_torch.utils import graphs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,6 +91,106 @@ def _fields(state):
     return u, state.ek_sum / (io + 1).to(u.dtype)[..., None]
 
 
+class MacroStep:
+    """One macro-step of a batch of envs, in place on buffers that it owns: the
+    policy acts on ``obs``, the env steps ``state``, the results go to index
+    ``t`` (a device scalar) of the (B, T, ...) trajectory buffers, and the new
+    state and observation are copied into ``state`` and ``obs``.  The body of
+    the collection's loop: called directly (on the CPU, or on the card inside
+    ``graphs.eager()``), or captured once and replayed as a CUDA graph, which
+    needs exactly this: fixed buffers, and an index that the step itself
+    advances on the device.
+
+    ``ts`` is the policy's train state; the graph's own copy of it holds the
+    observation normalizer in buffers that each collection copies into
+    (``observe_episodes`` makes new ones every generation)."""
+
+    def __init__(self, env: Env, rl_cfg, ts, generator, state, obs, deterministic: bool,
+                 record_fields: bool, consts):
+        B, T, na = obs.shape[0], env.episode_length, env.num_agents
+        self.rl_cfg, self.ts, self.generator = rl_cfg, ts, generator
+        self.deterministic, self.consts = deterministic, consts
+        self.env_step = env.batch_step if env.whole_batch else env.step
+        self.state, self.obs = state, obs
+        self.t = torch.zeros((), dtype=torch.int64, device=obs.device)
+        kw = dict(dtype=obs.dtype, device=obs.device)
+        self.traj = dict(
+            obs=torch.zeros((B, T, na, env.obs_dim), **kw),
+            actions=torch.zeros((B, T, na, env.act_dim), **kw),
+            mu=torch.zeros((B, T, na, env.act_dim), **kw),
+            sigma=torch.zeros((B, T, na, env.act_dim), **kw),
+            rewards=torch.zeros((B, T, na), **kw),
+            mask=torch.zeros((B, T), **kw))
+        self.blown = torch.zeros((B, T), dtype=torch.bool, device=obs.device)
+        self.recorded = {}
+        if record_fields:
+            for name, x in zip(("fields", "ektt"), _fields(state)):
+                if x is not None:
+                    self.recorded[name] = torch.zeros((B, T) + tuple(x.shape[1:]),
+                                                      dtype=x.dtype, device=x.device)
+
+    def _put(self, buf, x):
+        buf.index_copy_(1, self.t.view(1), x.unsqueeze(1).to(buf.dtype))
+
+    def __call__(self):
+        cfg = self.rl_cfg
+        if self.deterministic:
+            _, mu, sigma = vracer.policy_apply(cfg, self.ts, self.obs)
+            a = torch.clamp(mu, cfg.action_low, cfg.action_high)
+        else:
+            a, mu, sigma = vracer.act(cfg, self.ts, self.obs, self.generator)
+        self._put(self.traj["mask"], ~self.state.done)
+        state, obs_next, rew, _, info = self.env_step(self.consts, self.state, a)
+        for name, x in (("obs", self.obs), ("actions", a), ("mu", mu), ("sigma", sigma),
+                        ("rewards", rew)):
+            self._put(self.traj[name], x)
+        self._put(self.blown, info["blown"])
+        if self.recorded:
+            for name, x in zip(("fields", "ektt"), _fields(state)):
+                if name in self.recorded:
+                    self._put(self.recorded[name], x)
+        graphs.copy_((self.state, self.obs), (state, obs_next))
+        self.t.add_(1)
+
+    def result(self, copy: bool):
+        """(traj, final state); copies of the buffers when ``copy`` (a graph
+        overwrites its buffers at the next collection)."""
+        c = graphs.clone if copy else (lambda x: x)
+        traj = {k: c(v) for k, v in self.traj.items()}
+        # Truncated-vs-Terminal bookkeeping (burger_environment.py:198-204): a
+        # numeric blowup ends the episode "Truncated" and the learner bootstraps
+        # from V(final_obs); envs freeze once done, so final_obs is the
+        # observation at truncation time
+        traj["truncated"] = self.blown.any(dim=1)
+        traj["final_obs"] = c(self.obs)
+        traj.update({k: c(v) for k, v in self.recorded.items()})
+        return traj, c(self.state)
+
+
+def _graphed_collection(env: Env, rl_cfg, ts, generator, state, obs, deterministic,
+                        record_fields, consts):
+    """The MacroStep captured for (env, consts, generator, batch, mode) on this
+    network, reset to ``state``/``obs``; the first collection of a key runs
+    its first macro-step for real (the capture's warm-up)."""
+    key = ("collect", obs.shape[0], env.episode_length, deterministic, record_fields,
+           graphs.pointers(list(ts.net.parameters())), graphs.pointers(consts))
+    # a deterministic step draws nothing: any generator replays it
+    generators = [] if deterministic or generator is None else [generator]
+    objects = (ts.net, env, consts, *generators)
+    hit = graphs.cached(key, objects)
+    if hit is not None:
+        step, graph = hit
+        graphs.copy_((step.state, step.obs, step.ts.obs_stats), (state, obs, ts.obs_stats))
+        step.t.zero_()
+        return step, graph, 0
+    static_ts = dataclasses.replace(ts, obs_stats=graphs.clone(ts.obs_stats))
+    step = MacroStep(env, rl_cfg, static_ts, generator, graphs.clone(state), graphs.clone(obs),
+                     deterministic, record_fields, consts)
+    _, graph = graphs.capture(f"{env.name} macro-step", step, obs.device, generators)
+    graphs.store(key, objects, (step, graph))
+    return step, graph, 1
+
+
 def collect_episodes(env: Env, rl_cfg, ts, generator, batch_size: int,
                      episode_base: int = 0, deterministic: bool = False,
                      consts=None, record_fields: bool = False):
@@ -101,51 +203,26 @@ def collect_episodes(env: Env, rl_cfg, ts, generator, batch_size: int,
     field ``fields`` (B, T, N) after each step and, for spectral envs, the
     cumulative-mean energy spectrum ``ektt`` (B, T, N): the contents of the
     reference's save-episode npz (burger_environment.py:207-238: sgs_u /
-    sgs_Ektt); the replays ignore both."""
+    sgs_Ektt); the replays ignore both.
+
+    The reset runs eagerly; on the card the T macro-steps are replays of one
+    captured ``MacroStep`` (utils/graphs.py), elsewhere direct calls of it."""
     consts = env.consts if consts is None else consts
     device = ts.beta.device
     counts = episode_base + torch.arange(batch_size, device=device)
-    step = env.batch_step if env.whole_batch else env.step
     state, obs = env.reset_batch(consts, generator, counts)
-    B, T, na = batch_size, env.episode_length, env.num_agents
-    kw = dict(dtype=obs.dtype, device=obs.device)
-    traj = dict(
-        obs=torch.empty((B, T, na, env.obs_dim), **kw),
-        actions=torch.empty((B, T, na, env.act_dim), **kw),
-        mu=torch.empty((B, T, na, env.act_dim), **kw),
-        sigma=torch.empty((B, T, na, env.act_dim), **kw),
-        rewards=torch.empty((B, T, na), **kw),
-        mask=torch.empty((B, T), **kw))
-    blown = torch.empty((B, T), dtype=torch.bool, device=obs.device)
-    recorded = dict(fields=[], ektt=[])
-    for t in range(T):
-        if deterministic:
-            _, mu, sigma = vracer.policy_apply(rl_cfg, ts, obs)
-            a = torch.clamp(mu, rl_cfg.action_low, rl_cfg.action_high)
-        else:
-            a, mu, sigma = vracer.act(rl_cfg, ts, obs, generator)
-        traj["mask"][:, t] = ~state.done
-        state, obs_next, rew, _, info = step(consts, state, a)
-        traj["obs"][:, t] = obs
-        traj["actions"][:, t] = a
-        traj["mu"][:, t] = mu
-        traj["sigma"][:, t] = sigma
-        traj["rewards"][:, t] = rew
-        blown[:, t] = info["blown"]
-        obs = obs_next
-        if record_fields:
-            u, ektt = _fields(state)
-            recorded["fields"].append(u)
-            if ektt is not None:
-                recorded["ektt"].append(ektt)
-    # Truncated-vs-Terminal bookkeeping (burger_environment.py:198-204): a
-    # numeric blowup ends the episode "Truncated" and the learner bootstraps
-    # from V(final_obs); envs freeze once done, so final_obs is the
-    # observation at truncation time
-    traj["truncated"] = blown.any(dim=1)
-    traj["final_obs"] = obs
-    traj.update({k: torch.stack(v, dim=1) for k, v in recorded.items() if v})
-    return traj, state
+    T = env.episode_length
+    if graphs.enabled(obs.device):
+        step, graph, done = _graphed_collection(env, rl_cfg, ts, generator, state, obs,
+                                                deterministic, record_fields, consts)
+        for _ in range(T - done):
+            graph.replay()
+        return step.result(copy=True)
+    step = MacroStep(env, rl_cfg, ts, generator, graphs.clone(state), graphs.clone(obs),
+                     deterministic, record_fields, consts)
+    for _ in range(T):
+        step()
+    return step.result(copy=False)
 
 
 def zero_action_episode(env: Env, generator, batch_size: int = 1, episode_base: int = 0,

@@ -23,6 +23,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from marlpde_tpu_torch.device import constant
 from marlpde_tpu_torch.kernels import build
 
 # kernel launches since the last reset; incremented only where the CUDA kernel
@@ -41,7 +42,7 @@ def abcn_macro_step_reference(u, v_re, v_im, fn_re, fn_im, nu, af_re, af_im,
                               *, n_intermediate: int, dt: float, dx: float):
     """Plain PyTorch version on torch.fft (abcn_pallas.py:121-141)."""
     N = u.shape[-1]
-    k = torch.as_tensor(wavenumbers(N, dx), dtype=u.dtype, device=u.device)
+    k = constant(wavenumbers, N, dx, dtype=u.dtype, device=u.device)
     Cc = 0.5 * (k * k) * nu * dt
     inv = 1.0 / (1.0 + Cc)
     ek = torch.zeros_like(u)
@@ -106,7 +107,7 @@ def radix2_plan(N: int) -> tuple[np.ndarray, np.ndarray]:
     return twiddle, rev
 
 
-@lru_cache(maxsize=32)
+@lru_cache(maxsize=None)       # unbounded: a CUDA graph reads these by address
 def _lane_tables(N: int, dx: float, device: torch.device, dtype=torch.float32):
     """What the kernel reads besides the fields: a (2L + 1, N) table of lane
     j's twiddle at each stage, cos rows then sin rows, taken from the

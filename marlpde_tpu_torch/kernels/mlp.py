@@ -12,9 +12,14 @@ op needs no backward.
 The kernel runs layer 2 on the tensor cores in 3xTF32.  ``split_tf32`` is the
 split it uses, and ``mlp_forward_tf32`` a plain emulation of its arithmetic
 (the CPU tests hold both against the JAX package).  The kernel reads W2 as
-``w2_image``, built once per parameter version: the wrapper keeps it on the
-module, keyed on W2's storage and version counter, which every in-place
-update (the optimizer's step, ``load_state_dict``) bumps.
+``w2_image``, kept on the module in one buffer that is rewritten in place,
+never replaced, so a captured CUDA graph that reads it stays valid.  Two
+things rewrite it: ``refresh_w2_image``, which every VRACER update calls
+after its optimizer step (a replayed update changes W2 without bumping its
+version counter, and rewrites the image inside the same graph), and the
+wrapper itself when W2's storage or version counter has changed since the
+last write (an eager in-place edit: ``load_state_dict``, a test's
+perturbation).
 """
 
 from __future__ import annotations
@@ -29,8 +34,8 @@ from marlpde_tpu_torch.kernels import build
 # kernel launches since the last reset; incremented only where the CUDA kernel
 # is launched
 launches = 0
-# W2 images built for the kernel since the last reset (once per parameter
-# version); not kernel launches
+# writes of a W2 image for the kernel since the last reset, by the host
+# (a replayed update's rewrite is not counted); not kernel launches
 w2_splits = 0
 
 MAX_WIDTH = 256     # csrc/mlp.cu kMaxWidth: the widest wgmma (m64n256)
@@ -88,17 +93,52 @@ def w2_image(w2):
     return img.reshape(W // CHUNK_K, 2, W, CHUNK_K)
 
 
-def _cached_w2_image(net):
-    """``w2_image`` of the net's W2, rebuilt when W2's storage or version changes."""
+def _w2_key(w2):
+    return (w2.data_ptr(), w2._version, w2.device)
+
+
+@torch.no_grad()
+def _write_w2_image(net):
+    """Write ``w2_image`` of the net's W2 into the net's image buffer (made on
+    first use), and note W2's storage and version."""
     global w2_splits
     w2 = net.hidden[1].weight
-    key = (w2.data_ptr(), w2._version, w2.device)
     cached = getattr(net, "_mlp_w2_image", None)
-    if cached is None or cached[0] != key:
-        with torch.no_grad():
-            cached = (key, w2_image(w2.detach()))
+    if cached is None or cached[1].device != w2.device:
+        cached = [None, w2_image(w2.detach())]
         net._mlp_w2_image = cached
-        w2_splits += 1
+    else:
+        cached[1].copy_(w2_image(w2.detach()))
+    cached[0] = _w2_key(w2)
+    w2_splits += 1
+    return cached[1]
+
+
+def kernel_takes(net) -> bool:
+    """Whether the CUDA kernel takes the net's shape: two hidden layers of a
+    width that is a multiple of 32 up to MAX_WIDTH."""
+    W = net.width
+    return net.n_hidden == 2 and W % CHUNK_K == 0 and 32 <= W <= MAX_WIDTH
+
+
+def refresh_w2_image(net):
+    """Rewrite the net's W2 image from W2: what an optimizer step calls, so
+    that the next acting forward reads the new W2 whether or not the step
+    bumped W2's version counter.  On the card the image is made here if the
+    kernel takes the net (a graphed update captures the rewrite only if the
+    buffer exists when it is captured); on the CPU only an image that
+    exists is rewritten."""
+    if getattr(net, "_mlp_w2_image", None) is not None or (
+            kernel_takes(net) and net.hidden[1].weight.is_cuda):
+        _write_w2_image(net)
+
+
+def _cached_w2_image(net):
+    """The net's W2 image buffer, rewritten first when W2's storage or version
+    changed since the last write."""
+    cached = getattr(net, "_mlp_w2_image", None)
+    if cached is None or cached[0] != _w2_key(net.hidden[1].weight):
+        return _write_w2_image(net)
     return cached[1]
 
 
@@ -131,7 +171,7 @@ def mlp_forward(obs, net):
         raise TypeError(f"mlp_forward: the CUDA kernel takes float32, got {obs.dtype}")
     R, D = obs.shape
     W, A = net.width, net.act_dim
-    if net.n_hidden != 2 or W % 32 or not 32 <= W <= MAX_WIDTH or R == 0:
+    if not kernel_takes(net) or R == 0:
         raise ValueError(f"mlp_forward: the CUDA kernel takes n_hidden=2, a width that "
                          f"is a multiple of 32 up to {MAX_WIDTH}, and R >= 1; got "
                          f"n_hidden={net.n_hidden}, width={W}, R={R}")

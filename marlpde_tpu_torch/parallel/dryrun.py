@@ -180,7 +180,7 @@ def _dryrun(mesh, out: str):
             for k in live), f"[{mode}] the checkpoint restored other values on rank {mesh.rank}")
         mesh.barrier()
         print(f"[dryrun] {mode}-mode OK rank {mesh.rank}/{W} on {mesh.device} "
-              f"({mesh.backend}): {N_GEN} generations, {ts.n_updates} updates, train state "
+              f"({mesh.backend}): {N_GEN} generations, {int(ts.n_updates)} updates, train state "
               f"equal bit for bit across ranks, replay shards filled {filled}, orbax (DCP) "
               f"checkpoint restored bit for bit, mean_return {hist['mean_return'][-1]:.5f}",
               flush=True)
@@ -199,7 +199,7 @@ def rank_main(args) -> int:
     if args.cli:
         from marlpde_tpu_torch import run
         ts, _, hist = run.main(args.cli, device=args.device)
-        report.update(digest=_digest(ts), n_updates=ts.n_updates, wall_time=hist["wall_time"])
+        report.update(digest=_digest(ts), n_updates=int(ts.n_updates), wall_time=hist["wall_time"])
     else:
         try:
             _dryrun(pmesh.make_mesh(args.device), args.out)

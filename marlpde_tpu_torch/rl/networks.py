@@ -43,7 +43,7 @@ def lecun_normal_(weight, generator: torch.Generator | None = None):
 def leaky_sigma_cap(sigma, sigma_max, leak: float = SIGMA_CAP_LEAK):
     """Straight-through sigma ceiling: value = min(sigma, cap); gradient =
     identity below the cap, `leak` above it."""
-    cap = sigma.new_tensor(sigma_max)
+    cap = torch.full_like(sigma, sigma_max)       # a fill: no host copy, so capturable
     over = torch.maximum(sigma - cap, torch.zeros_like(sigma))
     hard = torch.minimum(sigma, cap)
     leaky = hard + leak * over

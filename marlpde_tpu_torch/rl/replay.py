@@ -13,7 +13,9 @@ Whole fixed-length episodes, layout:
   filled, cursor                 host ints: valid slots, ring-buffer write head
 
 Capacity C is in episodes.  Insertion overwrites the oldest episode, and
-writes into the buffers in place.
+writes into the buffers in place.  It also writes ``filled`` into
+``counters``, a device tensor the sampler reads, so a captured update
+(utils/graphs.py) follows every insert without being captured again.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from marlpde_tpu_torch.rl import replay_flat
 
 _FIELDS = ("obs", "actions", "mu", "sigma", "rewards", "mask", "final_obs", "truncated")
 
@@ -37,6 +41,10 @@ class Replay:
     truncated: torch.Tensor
     filled: int = 0
     cursor: int = 0
+
+    def __post_init__(self):
+        # (filled,) on the device, for the sampler; set by every insert
+        self.counters = torch.tensor([self.filled], dtype=torch.int64, device=self.obs.device)
 
     @property
     def capacity(self) -> int:
@@ -73,13 +81,14 @@ def add_episodes(rep: Replay, batch: dict) -> Replay:
         buf.index_copy_(0, idx, batch[name][B - keep:].to(buf.dtype))
     rep.filled = min(rep.filled + B, C)
     rep.cursor = (rep.cursor + B) % C
+    rep.counters.fill_(rep.filled)
     return rep
 
 
 def sample_episodes(rep: Replay, generator, n: int) -> dict:
-    """Uniformly sample n episode slots among the filled ones."""
-    idx = torch.randint(0, max(rep.filled, 1), (n,), generator=generator,
-                        device=rep.obs.device)
+    """Uniformly sample n episode slots among the filled ones (their count
+    read on the device)."""
+    idx = replay_flat.uniform_below(generator, n, torch.clamp(rep.counters[0], min=1))
     return {name: getattr(rep, name)[idx] for name in _FIELDS}
 
 

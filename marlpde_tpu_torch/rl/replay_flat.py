@@ -21,9 +21,14 @@ flag and the bootstrap V(s_T).  Episode bounds are global experience ids
 an episode's head can be overwritten while its tail lives on.
 
 In PyTorch's idiom the insert and the refreshes write the buffers in place,
-and ``cursor``/``n_episodes`` are host ints: the live count, the eviction
-horizon and the sampler's range need no device readback.  The one readback
-is the live-step count of each insert.  JAX's ``mode="fill"`` gathers become
+and ``cursor``/``n_episodes`` are host ints, the trainer's accounting.  The
+insert also writes (cursor, live) into ``counters``, a device tensor: the
+update reads the live range, the eviction horizon and the sampler's bound
+from there, so a captured update (utils/graphs.py) follows every insert
+without being captured again (the cursor moves at every insert for the
+whole run, so capturing again instead would cost a warm-up update and a
+capture every generation).  The one readback is the live-step count of
+each insert.  JAX's ``mode="fill"`` gathers become
 a clamped index plus ``torch.where``; its ``mode="drop"`` scatters write only
 rows that exist, so nothing reads or writes past a ring.
 """
@@ -58,6 +63,11 @@ class FlatReplay:
     # host counters (global, monotone)
     cursor: int = 0          # experiences ever written
     n_episodes: int = 0      # episodes ever written
+
+    def __post_init__(self):
+        # (cursor, live) on the device, for the update; set by every insert
+        self.counters = torch.tensor([self.cursor, self.live], dtype=torch.int64,
+                                     device=self.obs.device)
 
     @property
     def capacity(self) -> int:
@@ -100,9 +110,9 @@ def reward_scale_sums(rep: FlatReplay, reward_floor=-np.inf, extra=None, extra_m
     Rescaling sigma.  Blowup rewards (at or below the raw floor) are excluded
     from the statistic (see the JAX module).  ``extra``/``extra_mask`` fold in
     a fresh, not yet inserted episode batch.  The live slots are always the
-    first ``live`` rows of the ring."""
-    r = rep.rewards[: rep.live]
-    m = r > reward_floor
+    first ``live`` rows of the ring; their count is read on the device."""
+    r = rep.rewards
+    m = _live_rows(rep)[:, None] & (r > reward_floor)
     s = torch.where(m, r * r, torch.zeros_like(r)).sum()
     n = m.sum().to(r.dtype)
     if extra is not None:
@@ -122,16 +132,22 @@ def reward_scale(rep: FlatReplay, reward_floor=-np.inf, extra=None, extra_mask=N
     return scale_from_sums(*reward_scale_sums(rep, reward_floor, extra, extra_mask))
 
 
+def _live_rows(rep: FlatReplay):
+    """(E,) bool: the ring's live rows, the first ``live`` ones."""
+    return torch.arange(rep.capacity, device=rep.counters.device) < rep.counters[1]
+
+
 def off_policy_sums(rep: FlatReplay):
-    """(n_off tensor, n_live host int) over the live buffer."""
-    return rep.off[: rep.live].sum(), rep.live * rep.off.shape[1]
+    """(n_off, n_live) int64 device tensors over the live buffer."""
+    n_off = (rep.off & _live_rows(rep)[:, None]).sum()
+    return n_off, rep.counters[1] * rep.off.shape[1]
 
 
 def off_policy_fraction(rep: FlatReplay):
     """REFER's replay-wide off-policy fraction, in float32 as the JAX package
     computes it (korali's _experienceReplayOffPolicyRatio)."""
     n_off, n = off_policy_sums(rep)
-    return n_off.to(torch.float32) / float(np.float32(max(n, 1)))
+    return n_off.to(torch.float32) / torch.clamp(n, min=1).to(torch.float32)
 
 
 def num_experiences(rep: FlatReplay) -> int:
@@ -191,15 +207,25 @@ def add_episodes(rep: FlatReplay, batch: dict, sv, vtg, boot) -> FlatReplay:
     rep.boot.index_copy_(0, es, boot[B - keep_ep:].to(rep.boot.dtype))
     rep.cursor += total
     rep.n_episodes += B
+    rep.counters[0].fill_(rep.cursor)
+    rep.counters[1].fill_(rep.live)
     return rep
+
+
+def uniform_below(generator, n: int, bound):
+    """n uniform int64 draws from [0, bound) for a device tensor ``bound`` >= 1
+    (what torch.randint does for a host bound): 62 random bits modulo the
+    bound, whose bias (bound / 2**62) is below 1e-9 for any replay."""
+    bits = torch.randint(0, 2 ** 62, (n,), generator=generator, device=bound.device)
+    return bits % bound
 
 
 def sample_ids(rep: FlatReplay, generator, n: int):
     """n uniform draws over the live global-id range [cursor-live, cursor)
-    (korali generateMiniBatch: uniform over the buffer, with replacement)."""
-    u = torch.randint(0, max(rep.live, 1), (n,), generator=generator,
-                      device=rep.obs.device)
-    return (rep.cursor - rep.live) + u                                     # (n,) global
+    (korali generateMiniBatch: uniform over the buffer, with replacement),
+    from the device counters."""
+    cursor, live = rep.counters[0], rep.counters[1]
+    return (cursor - live) + uniform_below(generator, n, torch.clamp(live, min=1))
 
 
 def gather(rep: FlatReplay, g):
@@ -266,7 +292,7 @@ def refresh_retrace(rep: FlatReplay, g, T_window: int, gamma, scale,
 
     # window of global ids descending from the episode end
     w = ep_last[:, None] - torch.arange(T_window, device=g.device)[None, :]
-    horizon = rep.cursor - rep.live
+    horizon = rep.counters[0] - rep.counters[1]
     valid = (w >= ep_first[:, None]) & (w >= horizon)                      # (n, Tw)
     # invalid window slots read (and, below, write) the episode's last
     # experience, which is always live: no index leaves the ring

@@ -25,12 +25,15 @@ clip, so every rank takes the same step.  With ``group=None`` nothing is
 reduced.
 
 In PyTorch's idiom the train state holds the ``VracerNet`` module and its
-``torch.optim.Adam``; ``update`` and ``update_experience`` step them, and the
-replay, in place.  Every forward that needs no gradient (acting, the
-insert-time V(s), the V(s_T) bootstraps) goes through the MLP op
-(kernels/mlp.py); the losses differentiate the module.  The update counter
-and the annealed cutoff are decided on the host, so an update makes no
-device readback.
+``torch.optim.Adam``; ``update`` and ``update_experience`` step them, beta,
+the update counter and the replay in place, and return the same state.  Every
+forward that needs no gradient (acting, the insert-time V(s), the V(s_T)
+bootstraps) goes through the MLP op (kernels/mlp.py); the losses
+differentiate the module.  The update counter lives on the device, as in the
+JAX package, and the annealed cutoff and learning rate are computed there, so
+an update makes no device readback and reads no host value that changes: the
+trainer replays it as a CUDA graph (utils/graphs.py).  On the card Adam is
+capturable (its step count on the device too).
 """
 
 from __future__ import annotations
@@ -113,10 +116,15 @@ class VracerConfig:
 class TrainState:
     net: networks.VracerNet
     opt: torch.optim.Adam
-    beta: torch.Tensor           # 0-d
-    n_updates: int
+    beta: torch.Tensor           # 0-d, updated in place
+    n_updates: torch.Tensor      # 0-d int64 on beta's device, updated in place (an int is taken)
     obs_stats: running_stats.RunningStats
     rew_stats: running_stats.RunningStats
+
+    def __post_init__(self):
+        if not isinstance(self.n_updates, torch.Tensor):
+            self.n_updates = torch.tensor(int(self.n_updates), dtype=torch.int64,
+                                          device=self.beta.device)
 
 
 def make_net(cfg: VracerConfig, dtype=torch.float32, device=None,
@@ -143,8 +151,12 @@ def _rho_temper(cfg: VracerConfig) -> float:
 
 def make_optimizer(cfg: VracerConfig, net: networks.VracerNet) -> torch.optim.Adam:
     """Adam at a constant lr; the global-norm clip that optax chains before it
-    is applied in ``update`` (``clip_by_global_norm``)."""
-    return torch.optim.Adam(net.parameters(), lr=cfg.lr)
+    is applied in ``update`` (``clip_by_global_norm``).  Capturable on the
+    card, where the updates are replayed as CUDA graphs (its step count and
+    bias corrections on the device); the plain Adam on the CPU, which
+    capturable Adam does not take."""
+    on_card = next(net.parameters()).device.type == "cuda"
+    return torch.optim.Adam(net.parameters(), lr=cfg.lr, capturable=on_card)
 
 
 def init_train(cfg: VracerConfig, generator: torch.Generator, dtype=torch.float32,
@@ -220,7 +232,7 @@ def observe_episodes(cfg: VracerConfig, ts: TrainState, batch) -> TrainState:
             ok = batch["obs"].abs().amax(-1, keepdim=True) <= cfg.obs_stat_bound
             m = m * ok.to(m.dtype)
         if cfg.freeze_state_rescaling:
-            m = m * float(ts.n_updates == 0)
+            m = m * (ts.n_updates == 0).to(m.dtype)
         new_obs = running_stats.update(
             new_obs, batch["obs"].reshape(-1, cfg.obs_dim), weights=m.reshape(-1))
     if cfg.reward_rescaling:
@@ -422,12 +434,12 @@ def _loss_experience(cfg: VracerConfig, ts: TrainState, out, rows, vtg_next, sca
     ``out`` = (V, mu, sigma), the module's forward on the rows' prepared
     observations, still attached to the graph: the one-step value target runs
     through the just-refreshed retrace value of the successor, and the REFER
-    near/far split weighs the policy terms.  ``cutoff`` is a float32 value,
-    and 1/cutoff is taken in float32 too, as JAX does."""
+    near/far split weighs the policy terms.  ``cutoff`` is a 0-d float32
+    tensor, and 1/cutoff is taken in float32 too, as JAX does."""
     V, mu, sigma = out                                                # (n, na[, A])
     rewards = _rescale_rewards(cfg, rows["rewards"], scale)
     rho, logp = _joint_rho(cfg, rows["actions"], mu, sigma, rows["mu"], rows["sigma"])
-    near = (rho > float(np.float32(1.0) / np.float32(cutoff))) & (rho < cutoff)
+    near = (rho > torch.reciprocal(cutoff)) & (rho < cutoff)
 
     rho_bar = torch.clamp(rho, max=1.0).detach()
     Vsg = V.detach()
@@ -437,7 +449,7 @@ def _loss_experience(cfg: VracerConfig, ts: TrainState, out, rows, vtg_next, sca
 
     n_tot = float(rho.numel())
     v_loss = 0.5 * torch.sum((V - vtarget) ** 2) / n_tot
-    pg_w = (torch.clamp(rho, max=cutoff) * adv * near).detach()
+    pg_w = (torch.minimum(rho, cutoff.to(rho.dtype)) * adv * near).detach()
     pg_loss = -torch.sum(pg_w * logp) / n_tot
     kl = _trust_kl(cfg, rows["mu"], rows["sigma"], mu, sigma)
     far = (~near).to(kl.dtype)
@@ -450,11 +462,24 @@ def _loss_experience(cfg: VracerConfig, ts: TrainState, out, rows, vtg_next, sca
     return loss, {k: v.detach() for k, v in metrics.items()}
 
 
-def _annealed(cfg: VracerConfig, n_updates: int):
-    """1 + annealing_rate * n in float32, as the JAX package computes it from
-    its int32 counter; the cutoff c0 / that, also in float32."""
-    den = np.float32(1.0) + np.float32(cfg.annealing_rate) * np.float32(n_updates)
-    return den, np.float32(cfg.cutoff_scale) / den
+def _annealed(cfg: VracerConfig, n_updates):
+    """(den, cutoff, 1/cutoff), 0-d float32 tensors on the counter's device:
+    den = 1 + annealing_rate * n as the JAX package computes it from its int32
+    counter, and the cutoff c0 / den, each operation rounded to float32."""
+    den = n_updates.to(torch.float32) * float(np.float32(cfg.annealing_rate)) + 1.0
+    cutoff = torch.full_like(den, float(np.float32(cfg.cutoff_scale))) / den
+    return den, cutoff, torch.reciprocal(cutoff)
+
+
+def _adapt_beta_(ts: TrainState, far, lr_t, floor: float):
+    """REFER's beta step, in place: beta <- (1 - lr_t) beta, plus lr_t unless
+    ``far`` (the off-policy fraction is above target), clipped to
+    [floor, 1].  ``lr_t`` is a 0-d tensor; returns the new beta's copy."""
+    lr_t = lr_t.to(ts.beta.dtype)
+    kept = (1.0 - lr_t) * ts.beta
+    beta = torch.clamp(torch.where(far, kept, kept + lr_t), floor, 1.0)
+    ts.beta.copy_(beta)
+    return beta
 
 
 def update_experience(cfg: VracerConfig, ts: TrainState, frep, generator,
@@ -469,17 +494,16 @@ def update_experience(cfg: VracerConfig, ts: TrainState, frep, generator,
 
     The metadata refresh evaluates the same parameters on the same rows as the
     loss, so it takes the loss forward's detached outputs instead of a second
-    forward (equal in exact arithmetic).  Returns (ts, frep, metrics); the
-    module, the optimizer state and the replay change in place.
+    forward (equal in exact arithmetic).  Returns (ts, frep, metrics): the
+    same ts and frep, whose module, optimizer state, beta, update counter and
+    buffers change in place.
 
     Under ``group`` (vracer.py:583-666 with ``axis``) ``frep`` is the rank's
     shard and ``mini_batch`` the rank's slice of the minibatch: sampling and
     the refreshes stay on the shard, the live-buffer scale and the replay-wide
     off-policy fraction are summed over the ranks, and the gradients are
     averaged before the clip, so every rank takes the same step."""
-    den, cutoff32 = _annealed(cfg, ts.n_updates)
-    cutoff = float(cutoff32)
-    inv_cutoff = float(np.float32(1.0) / cutoff32)
+    den, cutoff, inv_cutoff = _annealed(cfg, ts.n_updates)
     g = replay_flat.sample_ids(frep, generator, mini_batch or cfg.mini_batch_size)
     rows = replay_flat.gather(frep, g)
     scale = _insert_scale(cfg, ts, frep, group=group)
@@ -502,22 +526,26 @@ def update_experience(cfg: VracerConfig, ts: TrainState, frep, generator,
     if group is not None:
         _copy_(grads, group.pmean(grads))
     clip_by_global_norm(grads, cfg.max_grad_norm)
-    ts.opt.step()
+    _optimizer_step(ts)
 
-    if group is None:
-        frac_off = replay_flat.off_policy_fraction(frep)
-    else:
-        n_off, n_live = replay_flat.off_policy_sums(frep)
-        n_off, n_live = group.psum([n_off, torch.tensor(n_live, device=n_off.device)])
-        frac_off = n_off.to(torch.float32) / torch.clamp(n_live, min=1).to(torch.float32)
-    bdt = np.float64 if ts.beta.dtype == torch.float64 else np.float32
-    lr_t = bdt(cfg.lr) / bdt(den)
-    keep = float(bdt(1.0) - lr_t)
-    beta = torch.where(frac_off > cfg.offpolicy_target, keep * ts.beta,
-                       keep * ts.beta + float(lr_t))
-    beta = torch.clamp(beta, 0.0, 1.0)
+    n_off, n_live = replay_flat.off_policy_sums(frep)
+    if group is not None:
+        n_off, n_live = group.psum([n_off, n_live])
+    frac_off = n_off.to(torch.float32) / torch.clamp(n_live, min=1).to(torch.float32)
+    # the annealed learning rate lr / den in beta's dtype
+    lr_t = torch.full_like(ts.beta, cfg.lr) / den.to(ts.beta.dtype)
+    beta = _adapt_beta_(ts, frac_off > cfg.offpolicy_target, lr_t, 0.0)
     metrics.update(beta=beta, cutoff=cutoff, frac_off_replay=frac_off, rew_scale=scale)
-    return dataclasses.replace(ts, beta=beta, n_updates=ts.n_updates + 1), frep, metrics
+    return ts, frep, metrics
+
+
+def _optimizer_step(ts: TrainState):
+    """Adam's step, the update counter, and the MLP kernel's image of the new
+    W2 (which a replayed step must rewrite itself: it changes W2 without
+    bumping its version counter)."""
+    ts.opt.step()
+    ts.n_updates.add_(1)
+    mlp.refresh_w2_image(ts.net)
 
 
 @torch.no_grad()
@@ -538,14 +566,14 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 def update(cfg: VracerConfig, ts: TrainState, batch, group=None):
-    """One gradient step on a sampled episode batch; returns (ts, metrics).
-    The network and the optimizer state are updated in place.  Under
+    """One gradient step on a sampled episode batch; returns (ts, metrics),
+    the same ts, whose network, optimizer state, beta and update counter
+    change in place.  Under
     ``group`` the rank's gradients and its minibatch's far-policy fraction
     are averaged over the ranks (one collective) before the clip, Adam and
     beta, as the JAX mesh's episode-mode update does
     (marlpde_tpu/parallel/mesh.py:164-185)."""
-    n_upd = torch.tensor(float(ts.n_updates), dtype=torch.float32, device=ts.beta.device)
-    cutoff = cfg.cutoff_scale / (1.0 + cfg.annealing_rate * n_upd)
+    _, cutoff, _ = _annealed(cfg, ts.n_updates)
     ts.opt.zero_grad(set_to_none=True)
     loss, metrics = _loss(cfg, ts.net, ts, batch, cutoff)
     loss.backward()
@@ -554,14 +582,10 @@ def update(cfg: VracerConfig, ts: TrainState, batch, group=None):
         *avg, metrics["frac_far"] = group.pmean(grads + [metrics["frac_far"]])
         _copy_(grads, avg)
     clip_by_global_norm(grads, cfg.max_grad_norm)
-    ts.opt.step()
+    _optimizer_step(ts)
 
     # REFER beta adaptation (paper sec. 3.2): push frac_far toward target
-    nu = torch.tensor(cfg.lr * 10.0, dtype=ts.beta.dtype, device=ts.beta.device)
-    beta = torch.where(metrics["frac_far"] > cfg.offpolicy_target,
-                       (1.0 - nu) * ts.beta, (1.0 - nu) * ts.beta + nu)
-    beta = torch.clamp(beta, 0.05, 1.0)
-
-    metrics["beta"] = beta
+    nu = torch.full_like(ts.beta, cfg.lr * 10.0)
+    metrics["beta"] = _adapt_beta_(ts, metrics["frac_far"] > cfg.offpolicy_target, nu, 0.05)
     metrics["cutoff"] = cutoff
-    return dataclasses.replace(ts, beta=beta, n_updates=ts.n_updates + 1), metrics
+    return ts, metrics

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from marlpde_tpu_torch.core.grids import Grid
+from marlpde_tpu_torch.device import grid_array
 
 
 @dataclasses.dataclass(frozen=True, eq=True)
@@ -103,7 +104,7 @@ def step(cfg: AdvectionConfig, state: AdvectionState, actions=None,
 def analytical_sinus(state: AdvectionState, cfg: AdvectionConfig, t=None):
     """sin((x - nu*t - offset)*2*pi/L)   (Advection.py:289-291)."""
     t = state.t if t is None else t
-    x = torch.as_tensor(cfg.grid.x, dtype=state.u.dtype, device=state.u.device)
+    x = grid_array(cfg.grid, "x", state.u.dtype, state.u.device)
     arg = x - (state.nu * t)[..., None] - state.offset[..., None]
     return torch.sin(arg * 2.0 * np.pi / cfg.L)
 

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from marlpde_tpu_torch.core import spectral
+from marlpde_tpu_torch.device import constant, grid_array
 from marlpde_tpu_torch.core.grids import Grid
 from marlpde_tpu_torch.solvers import closures
 
@@ -125,7 +126,7 @@ def stochastic_forcing(cfg: BurgerConfig, state: BurgerState):
     forcing = sum_{k=1..3} r1[k,ridx]*A/sqrt(k*s*dt)*cos(2*pi*k*(x+offset)/L + 2*pi*r2[k,ridx]),
     A = sqrt(2)/L, ridx = ioutnum % s."""
     u = state.u
-    x = torch.as_tensor(cfg.grid.x, dtype=u.dtype, device=u.device)
+    x = grid_array(cfg.grid, "x", u.dtype, u.device)
     A = np.sqrt(2.0) / cfg.L
     ridx = (state.ioutnum % cfg.stepper)[..., None, None]
     ks = torch.arange(1, 4, dtype=u.dtype, device=u.device)
@@ -144,6 +145,10 @@ def linear_symbol(coeffs, k):
     k = np.asarray(k, np.float64)
     return (-c[0] - c[1] * 1j * k + (1 + c[2]) * k**2
             + c[3] * 1j * k**3 - (1 + c[4]) * k**4)
+
+
+def _grid_symbol(coeffs, grid):
+    return linear_symbol(coeffs, grid.k)
 
 
 def total_forcing_spectrum(cfg: BurgerConfig, state: BurgerState,
@@ -195,8 +200,8 @@ def _cfd_op(u, nu, dx):
 def rk3_stages(cfg: BurgerConfig, u, v, F, nu):
     """Spectral SSP-RK3 (Burger_jax.py:42-64) from (u, v) with the forcing
     spectrum ``F`` constant over the three stages; returns (u', v')."""
-    k1 = torch.as_tensor(cfg.grid.k1, dtype=v.dtype, device=v.device)
-    k2 = torch.as_tensor(cfg.grid.k2, dtype=v.dtype, device=v.device)
+    k1 = grid_array(cfg.grid, "k1", v.dtype, v.device)
+    k2 = grid_array(cfg.grid, "k2", v.dtype, v.device)
 
     def rhs(u_, v_):
         return -0.5 * k1 * spectral.fft(u_ * u_) + nu * k2 * v_ + F
@@ -221,14 +226,14 @@ def step(cfg: BurgerConfig, state: BurgerState,
     fn_new = state.fn_old
     if cfg.scheme == "abcn":
         # Adams-Bashforth(2) nonlinear / Crank-Nicolson viscous (Burger.py:482-489)
-        k1 = torch.as_tensor(cfg.grid.k1, dtype=v.dtype, device=v.device)
+        k1 = grid_array(cfg.grid, "k1", v.dtype, v.device)
         if cfg.coeffs is None:
-            k2 = torch.as_tensor(cfg.grid.k2, dtype=v.dtype, device=v.device)
+            k2 = grid_array(cfg.grid, "k2", v.dtype, v.device)
             C = -0.5 * k2 * nu * cfg.dt
         else:
             # altered linear symbol (Burger.py:171-175); see BurgerConfig.coeffs
-            C = 0.5 * cfg.dt * torch.as_tensor(linear_symbol(cfg.coeffs, cfg.grid.k),
-                                               dtype=v.dtype, device=v.device)
+            C = 0.5 * cfg.dt * constant(_grid_symbol, cfg.coeffs, cfg.grid,
+                                        dtype=v.dtype, device=v.device)
         fn_new = k1 * spectral.fft(0.5 * state.u * state.u)
         v_new = ((1.0 - C) * v - 0.5 * cfg.dt * (3.0 * fn_new - state.fn_old)
                  + cfg.dt * F) / (1.0 + C)

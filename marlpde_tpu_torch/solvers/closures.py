@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from marlpde_tpu_torch.core import spectral
+from marlpde_tpu_torch.device import constant
 
 
 def first_deriv_onesided(u, dx):
@@ -39,6 +40,11 @@ def ssm_forcing(u, dx, N, cs=0.1):
     return nu_ssm * second_deriv(u, dx)
 
 
+def _test_filter(k: tuple, N: int) -> np.ndarray:
+    """The test filter's kept modes, |k| <= N//4."""
+    return np.abs(np.asarray(k)) <= N // 4
+
+
 def dsm_forcing(u, v, k, dx, N):
     """Dynamic Smagorinsky (Germano-style, the reference's 'alt' estimator).
 
@@ -50,7 +56,7 @@ def dsm_forcing(u, v, k, dx, N):
     detection ends such an episode."""
     delta = 2.0 * np.pi / N
     deltah = 4.0 * np.pi / N
-    keep = torch.as_tensor(np.abs(np.asarray(k)) <= N // 4, device=u.device)
+    keep = constant(_test_filter, tuple(np.asarray(k).tolist()), N, device=u.device)
 
     def filt(z):
         return torch.where(keep, z, torch.zeros_like(z))

@@ -61,7 +61,7 @@ class KSState:
     ioutnum: torch.Tensor  # (...,) int64 step counter
 
 
-@lru_cache(maxsize=32)
+@lru_cache(maxsize=None)       # unbounded: a CUDA graph reads these by address
 def _hermitian_mask(N: int, dtype: torch.dtype, device: torch.device):
     """(N//2+1, 2) ones, with 0 on the imaginary parts of bins 0 and N/2."""
     m = torch.ones(N // 2 + 1, 2, dtype=dtype)
@@ -121,7 +121,7 @@ def etdrk4_coeffs(cfg: KSConfig):
     return E, E2, Q, f1, f2, f3, gk
 
 
-@lru_cache(maxsize=32)
+@lru_cache(maxsize=None)       # unbounded: a CUDA graph reads these by address
 def _coeff_tensors(cfg: KSConfig, rdtype: torch.dtype, cdtype: torch.dtype,
                    device: torch.device):
     """``etdrk4_coeffs`` on ``device``, cast as JAX casts them (ks.py:142-147):

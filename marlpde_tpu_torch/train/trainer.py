@@ -9,15 +9,20 @@ Policy Updates` economics.  Both minibatch modes are ported: episode mode
 experience mode (uniform experiences on the flat REFER replay, the CLI
 default).
 
-PyTorch runs eagerly, so the JAX package's fused and unfused paths are one
-generation loop here: ``train`` runs the static update count of
-``updates_per_generation`` with padded experience accounting, or korali's
-real-experience ledger with ``count_real_experiences``, and adds testing,
-checkpoints and the decay diagnostics.  ``build_fused_generation`` keeps the
-JAX name for one such generation at the static count.  One
-``torch.Generator`` on the env's device draws the initial weights, the reset
-offsets, the action noise and every minibatch.  Counters that decide control
-flow (replay fill, update counts, the ledger) are host ints.
+The JAX package's fused and unfused paths are one generation loop here:
+``train`` runs the static update count of ``updates_per_generation`` with
+padded experience accounting, or korali's real-experience ledger with
+``count_real_experiences``, and adds testing, checkpoints and the decay
+diagnostics.  ``build_fused_generation`` keeps the JAX name for one such
+generation at the static count.  On the card a generation is a handful of
+device programs, as in the JAX package: the collection's macro-step and the
+update are CUDA graphs (utils/graphs.py), replayed T and n times, around the
+eager reset, normalizer update and replay insert.  One ``torch.Generator``
+on the env's device draws the initial weights, the reset offsets, the action
+noise and every minibatch; the graphs advance it as the eager steps would.
+Counters that decide control flow (replay fill, update counts, the ledger)
+are host ints; the update counter and the replay's bounds also live on the
+device, where the graphs read them.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from marlpde_tpu_torch.envs.rollout import Env, collect_episodes
 from marlpde_tpu_torch.rl import replay as replay_mod
 from marlpde_tpu_torch.rl import replay_flat, running_stats, vracer
 from marlpde_tpu_torch.utils import checkpoint as ckpt
+from marlpde_tpu_torch.utils import graphs
 from marlpde_tpu_torch.utils.profiling import Throughput
 
 
@@ -56,9 +62,11 @@ class TrainerConfig:
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 25
     serialize_replay: bool = False
-    # the JAX package's one-program generation; eager PyTorch runs the same
-    # loop either way, so only run.py reads it (its default real-experience
-    # accounting is for the unfused path)
+    # the JAX package's one-program generation: run.py gives it the padded
+    # accounting (a static update count), and its default real-experience
+    # accounting is for the unfused path; either way a generation on the
+    # card is the collection's and the update's graph replays plus the eager
+    # insert
     fused: bool = False
     # per-generation probe of the policy on a fixed batch of initial states
     # into history["diag"]
@@ -122,16 +130,54 @@ def _updates_started(rl_cfg, rep) -> bool:
     return rep.filled >= rl_cfg.replay_start_episodes
 
 
+def _update(rl_cfg, ts, rep, generator):
+    """One update of either minibatch mode, in place; returns its metrics."""
+    if rl_cfg.minibatch_mode == "experience":
+        return vracer.update_experience(rl_cfg, ts, rep, generator)[2]
+    batch = replay_mod.sample_episodes(rep, generator, rl_cfg.mini_batch_episodes)
+    return vracer.update(rl_cfg, ts, batch)[1]
+
+
+def _update_key(rl_cfg, ts, rep):
+    return ("update", rl_cfg, graphs.pointers(
+        (list(ts.net.parameters()), list(ts.opt.state.values()), ts.beta, ts.n_updates,
+         rep, rep.counters)))
+
+
+def _update_graph(rl_cfg, ts, rep, generator):
+    """(the update captured for this train state, replay and generator, the
+    warm-up's metrics or None).  The graph reads the normalizers from its own
+    buffers, which each call copies into; everything else it reads and writes
+    in place (the module, Adam's state, beta, the counter, the replay)."""
+    objects = (ts.net, rep, generator)
+    hit = graphs.cached(_update_key(rl_cfg, ts, rep), objects)
+    if hit is not None:
+        static_ts, graph = hit
+        graphs.copy_((static_ts.obs_stats, static_ts.rew_stats), (ts.obs_stats, ts.rew_stats))
+        return graph, None
+    static_ts = dataclasses.replace(ts, obs_stats=graphs.clone(ts.obs_stats),
+                                    rew_stats=graphs.clone(ts.rew_stats))
+    first, graph = graphs.capture(f"{rl_cfg.minibatch_mode}-mode update",
+                                  lambda: _update(rl_cfg, static_ts, rep, generator),
+                                  ts.beta.device, generators=[generator])
+    # under the key the next call computes: the warm-up made Adam's state
+    graphs.store(_update_key(rl_cfg, ts, rep), objects, (static_ts, graph))
+    return graph, first
+
+
 def run_updates(rl_cfg, ts, rep, generator, n: int):
     """``n`` sequential updates from ``generator``; returns (ts, rep, the last
-    update's metrics, {} when n is 0)."""
+    update's metrics, {} when n is 0).  On the card they are replays of one
+    captured update (the first call for a train state also runs one update
+    for real, the capture's warm-up); elsewhere direct calls."""
     metrics = {}
+    if n and graphs.enabled(ts.beta.device):
+        graph, metrics = _update_graph(rl_cfg, ts, rep, generator)
+        for _ in range(n - (metrics is not None)):
+            metrics = graph.replay()
+        return ts, rep, {k: v.clone() for k, v in metrics.items()}
     for _ in range(n):
-        if rl_cfg.minibatch_mode == "experience":
-            ts, rep, metrics = vracer.update_experience(rl_cfg, ts, rep, generator)
-        else:
-            batch = replay_mod.sample_episodes(rep, generator, rl_cfg.mini_batch_episodes)
-            ts, metrics = vracer.update(rl_cfg, ts, batch)
+        metrics = _update(rl_cfg, ts, rep, generator)
     return ts, rep, metrics
 
 

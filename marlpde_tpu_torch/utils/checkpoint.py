@@ -128,7 +128,7 @@ def load_train_state(path: str, rl_cfg, device=None,
         d = dcp_state(ts)
         dcp.load(d, checkpoint_id=odir, no_dist=not dist.is_initialized())
         ts.net.load_state_dict({k[4:]: v for k, v in d.items() if k.startswith("net.")})
-        ts.opt.load_state_dict(dict(
+        load_optimizer(ts.opt, dict(
             state={i: {k: d[f"adam.{i}.{k}"] for k in ("step", "exp_avg", "exp_avg_sq")}
                    for i in range(len(list(ts.net.parameters())))},
             param_groups=ts.opt.state_dict()["param_groups"]))
@@ -143,11 +143,29 @@ def load_train_state(path: str, rl_cfg, device=None,
     beta = d["beta"]
     ts = _template(rl_cfg, beta.dtype, beta.device)
     ts.net.load_state_dict(d["net"])
-    ts.opt.load_state_dict(d["opt"])
+    load_optimizer(ts.opt, d["opt"])
     return dataclasses.replace(
         ts, beta=beta, n_updates=int(d["n_updates"]),
         obs_stats=running_stats.RunningStats(**d["obs_stats"]),
         rew_stats=running_stats.RunningStats(**d["rew_stats"]))
+
+
+def load_optimizer(opt: torch.optim.Optimizer, state_dict: dict):
+    """``opt.load_state_dict(state_dict)``, keeping ``opt``'s own
+    ``capturable``: torch replaces the param groups with the saved ones, so a
+    checkpoint written on the CPU (plain Adam) would leave the card's Adam
+    uncapturable, and one written on the card would make the CPU's Adam
+    refuse to step.  Each step count goes where that Adam keeps it: beside
+    its parameter in float32 when capturable, on the CPU otherwise."""
+    capturable = [g.get("capturable", False) for g in opt.param_groups]
+    opt.load_state_dict(state_dict)
+    for group, cap in zip(opt.param_groups, capturable):
+        group["capturable"] = cap
+        for p in group["params"]:
+            st = opt.state.get(p, {})
+            if "step" in st:
+                st["step"] = (st["step"].to(dtype=torch.float32, device=p.device) if cap
+                              else st["step"].to(device="cpu"))
 
 
 def _template(rl_cfg, dtype, device) -> vracer.TrainState:
@@ -180,9 +198,21 @@ def save_meta(path: str, generator: torch.Generator, gen: int, total_exp: float,
         extra["mu_param"] = np.str_(rl_cfg.mu_param)
         extra["cutoff_dim_norm"] = np.bool_(rl_cfg.cutoff_dim_norm)
     np.savez(os.path.join(path, "meta.npz"),
-             generator=generator.get_state().numpy(),
+             generator=generator_state(generator),
              gen=np.int64(gen), total_exp=np.float64(total_exp),
              episode_base=np.int64(episode_base), **extra)
+
+
+def generator_state(generator: torch.Generator) -> np.ndarray:
+    """The generator's (seed, offset) bytes: ``get_state`` reads the state
+    object that a CUDA graph registered with the generator advances at each
+    replay, so it is right between replays.  Restore with
+    ``generator.set_state``, which writes into that same object, so a graph
+    that registered the generator follows it (``graphsafe_set_state`` would
+    swap in another object, which the graph does not advance; and
+    ``graphsafe_get_state`` hands back a view of the live state, not a
+    snapshot)."""
+    return generator.get_state().numpy()
 
 
 def load_meta(path: str) -> Optional[dict]:

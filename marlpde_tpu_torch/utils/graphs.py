@@ -1,0 +1,244 @@
+"""CUDA graphs of the training steps: the port's counterpart of the ``jax.jit``
+around a step (marlpde_tpu/train/trainer.py:209-250, make_update_scan;
+marlpde_tpu/envs/rollout.py:110, the macro-step scan).
+
+The JAX package runs a generation as a few compiled programs.  Eager PyTorch
+issues every operation of a step from the host: 517-589 launches for an
+experience-mode update, about 930 for an episode-mode one, 91-504 for a
+macro-step of the collection.  ``capture`` records one step as a CUDA graph
+and ``StepGraph.replay`` issues all of it as one launch.
+
+A step that is captured obeys three rules:
+  * every tensor it reads or writes outlives the graph at a fixed address:
+    the callers keep static buffers and copy new values into them, never
+    replace them;
+  * it makes no host-device copy and no readback, and reads no host value that
+    changes between replays: such values live on the device (the update
+    counter, the replay's cursor and live count);
+  * its random draws come from ``torch.Generator``s registered with the graph,
+    whose offsets each replay advances exactly as eager draws would, so the
+    stream (and a resume) is the same with and without graphs.
+
+``capture`` runs the step once for real on a side stream (the warm-up: the
+optimizer's state, cuBLAS and cuFFT plans, the kernels' libraries), then
+records it.  The hand-written kernels count their launches in Python, which a
+replay skips: the capture records what each wrapper counted, puts the counters
+back, and every replay adds those numbers again.
+
+Graphs are only for CUDA tensors, and a failed capture or replay raises: no
+step quietly runs eagerly instead.  The callers run their steps directly where
+``enabled`` is false: on the CPU, which a caller asks for explicitly, and on
+the card inside ``eager()``, which comparisons of the two paths use.
+``cached``/``store`` keep the last MAX_GRAPHS graphs, with the objects they
+were captured against.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import dataclasses
+
+import torch
+
+from marlpde_tpu_torch.kernels import abcn, mlp
+
+# graph replays since the last reset, of every graph
+replays = 0
+
+# the wrappers whose ``launches`` counters a replay advances
+_COUNTED = (abcn, mlp)
+_eager_depth = 0
+
+
+def enabled(device) -> bool:
+    """Whether steps on ``device`` run as graph replays."""
+    return torch.device(device).type == "cuda" and _eager_depth == 0
+
+
+@contextlib.contextmanager
+def eager():
+    """Run the steps directly, on the card too, inside the block."""
+    global _eager_depth
+    _eager_depth += 1
+    try:
+        yield
+    finally:
+        _eager_depth -= 1
+
+
+class CudaGraph:
+    """``torch.cuda.CUDAGraph`` behind the three calls ``capture`` makes."""
+
+    def __init__(self, device: torch.device):
+        if device.type != "cuda":
+            raise ValueError(f"[graphs] CUDA graphs take CUDA tensors, not {device}")
+        self.device = device
+        self.graph = torch.cuda.CUDAGraph()
+
+    def register_generator_state(self, generator: torch.Generator):
+        self.graph.register_generator_state(generator)
+
+    def capture(self, fn):
+        with torch.cuda.device(self.device), torch.cuda.graph(self.graph):
+            return fn()
+
+    def replay(self):
+        self.graph.replay()
+
+
+# the graph type ``capture`` records into (the CPU tests substitute a stand-in)
+new_graph = CudaGraph
+
+
+def _counts():
+    return [m.launches for m in _COUNTED]
+
+
+def _set_counts(counts):
+    for m, n in zip(_COUNTED, counts):
+        m.launches = n
+
+
+@dataclasses.dataclass
+class StepGraph:
+    """A captured step.  ``out`` is its static output: every replay overwrites
+    it.  ``launches`` holds the hand-written kernels' launches in one replay
+    (in the order of ``_COUNTED``)."""
+
+    name: str
+    graph: object
+    out: object
+    launches: tuple
+
+    def replay(self):
+        global replays
+        try:
+            self.graph.replay()
+        except RuntimeError as e:
+            e.add_note(f"[graphs] while replaying {self.name}")
+            raise
+        _set_counts([n + k for n, k in zip(_counts(), self.launches)])
+        replays += 1
+        return self.out
+
+
+def _warm_up(fn, device: torch.device):
+    if device.type != "cuda":
+        return fn()
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        out = fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    return out
+
+
+def capture(name: str, fn, device, generators=()):
+    """Run ``fn()`` once (the warm-up, a real step), then capture it.
+
+    Returns (the warm-up's result, the ``StepGraph``).  ``generators`` draw
+    ``fn``'s random numbers; each replay advances them."""
+    device = torch.device(device)
+    first = _warm_up(fn, device)
+    graph = new_graph(device)
+    for g in generators:
+        graph.register_generator_state(g)
+    before = _counts()
+    try:
+        out = graph.capture(fn)
+    except BaseException as e:
+        e.add_note(f"[graphs] while capturing {name}")
+        raise
+    finally:
+        # the capture launched nothing: what the wrappers counted is per replay
+        launches = tuple(a - b for a, b in zip(_counts(), before))
+        _set_counts(before)
+    return first, StepGraph(name, graph, out, launches)
+
+
+# the graphs kept, least recently used first: (key, ids, settings) -> (objects, value)
+_CACHE: "collections.OrderedDict" = collections.OrderedDict()
+# graphs kept at once: a generation uses two or three (the training and test
+# collections, the update); each holds its buffers and private memory pool
+MAX_GRAPHS = 8
+
+
+def _settings() -> tuple:
+    """The global switches a graph freezes at its capture: the float32 matmul
+    precision, which --bf16 lowers for one run (device.py)."""
+    return (torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+
+
+def cached(key, objects=()):
+    """What ``store`` kept under ``key`` for these same ``objects`` (held
+    alive by the cache, so no other object can take their ids) and the same
+    matmul settings, or None."""
+    k = (key, tuple(map(id, objects)), _settings())
+    hit = _CACHE.get(k)
+    if hit is None:
+        return None
+    _CACHE.move_to_end(k)
+    return hit[1]
+
+
+def store(key, objects, value):
+    """Keep ``value`` (a graph and its buffers) for ``key`` and ``objects``,
+    dropping the least recently used graph beyond MAX_GRAPHS."""
+    _CACHE[(key, tuple(map(id, objects)), _settings())] = (tuple(objects), value)
+    while len(_CACHE) > MAX_GRAPHS:
+        _CACHE.popitem(last=False)
+
+
+def tensors(tree) -> list:
+    """The tensors of a tree of dataclasses, dicts, lists and tuples, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return [t for f in dataclasses.fields(tree) for t in tensors(getattr(tree, f.name))]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tensors(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in tensors(v)]
+    return []
+
+
+def pointers(tree) -> tuple:
+    """(address, shape, dtype) of each tensor of ``tree``: what a graph that
+    reads them by address was captured against."""
+    return tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in tensors(tree))
+
+
+def clone(tree):
+    """``tree`` with every tensor cloned into fresh, writable storage."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone(memory_format=torch.contiguous_format)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{f.name: clone(getattr(tree, f.name))
+                                            for f in dataclasses.fields(tree) if f.init})
+    if isinstance(tree, dict):
+        return {k: clone(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(clone(v) for v in tree)
+    return tree
+
+
+@torch.no_grad()
+def copy_(dst, src):
+    """Copy every tensor of ``src`` into the tensor at its place in ``dst``
+    (same structure, shapes and dtypes).  A source that is another
+    destination's buffer is read before anything is written."""
+    dsts, srcs = tensors(dst), tensors(src)
+    if len(dsts) != len(srcs):
+        raise ValueError(f"[graphs] copy_: {len(srcs)} tensors into {len(dsts)}")
+    for d, s in zip(dsts, srcs):
+        if d.shape != s.shape or d.dtype != s.dtype:
+            raise ValueError(f"[graphs] copy_: {tuple(s.shape)} {s.dtype} into "
+                             f"{tuple(d.shape)} {d.dtype}")
+    held = {d.data_ptr() for d in dsts}
+    srcs = [s.clone() if s.data_ptr() in held and s is not d else s
+            for d, s in zip(dsts, srcs)]
+    for d, s in zip(dsts, srcs):
+        if s is not d:
+            d.copy_(s)

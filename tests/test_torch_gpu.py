@@ -6,6 +6,9 @@ The file imports no JAX, so it runs on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py -q
 """
 
+import contextlib
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -389,3 +392,152 @@ def test_burger_fd_env_on_card_matches_cpu(cuda, noise):
                 (states[cuda].solver.u.cpu(), states["cpu"].solver.u)]:
             assert torch.isfinite(y).all()
             assert (x - y).abs().max().item() <= 1e-4 * max(1.0, y.abs().max().item())
+
+
+# ------------------------------------------------------------------ CUDA graphs
+
+def _same_bits(a, b):
+    """Equal values, NaN where NaN (a blown env's frozen state holds NaN)."""
+    a, b = a.detach(), b.detach()
+    if a.is_complex():
+        a, b = torch.view_as_real(a), torch.view_as_real(b)
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    return torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)) and torch.equal(
+        torch.isnan(a), torch.isnan(b))
+
+
+def _copies(ts, rep, generator):
+    """A second train state, replay and generator with the same contents."""
+    import copy
+    from marlpde_tpu_torch.utils import graphs
+    g = torch.Generator(device=generator.device)
+    g.set_state(generator.get_state())
+    return copy.deepcopy(ts), graphs.clone(rep), g
+
+
+def _learner(cuda, mode):
+    """A width-128 learner on the card with one inserted generation of
+    random episodes (4 episodes of 20 steps, 4 agents, obs 3)."""
+    from marlpde_tpu_torch.rl import replay, replay_flat, vracer
+    cfg = vracer.VracerConfig(obs_dim=3, act_dim=1, num_agents=4, episode_length=20,
+                              width=128, mini_batch_size=8, mini_batch_episodes=2,
+                              minibatch_mode=mode, replay_max_experiences=64,
+                              replay_episode_capacity=8, lr=1e-3)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    ts = vracer.init_train(cfg, g, device=cuda)
+    rng = np.random.default_rng(0)
+    B, T, na = 4, 20, 4
+    mask = np.ones((B, T), np.float32)
+    mask[1, 12:] = 0.0
+    batch = dict(obs=rng.standard_normal((B, T, na, 3)), actions=rng.standard_normal((B, T, na, 1)),
+                 mu=rng.standard_normal((B, T, na, 1)) * 0.3,
+                 sigma=rng.uniform(0.05, 0.3, (B, T, na, 1)),
+                 rewards=rng.standard_normal((B, T, na)) * 0.05, mask=mask,
+                 final_obs=rng.standard_normal((B, na, 3)),
+                 truncated=np.array([False, True, False, False]))
+    tb = {k: torch.from_numpy(np.asarray(v)).to(cuda) for k, v in batch.items()}
+    tb = {k: (v.float() if v.is_floating_point() else v) for k, v in tb.items()}
+    ts = vracer.observe_episodes(cfg, ts, tb)
+    if mode == "experience":
+        rep = vracer.flat_insert(cfg, ts, replay_flat.init_flat(64, 8, na, 3, 1, device=cuda), tb)
+    else:
+        rep = replay.add_episodes(replay.init(8, T, na, 3, 1, device=cuda), tb)
+    return cfg, ts, rep, g
+
+
+@pytest.mark.parametrize("mode", ["experience", "episode"])
+def test_graph_replays_of_the_update_match_eager_calls(cuda, mode):
+    """Three updates through run_updates (the first for real, the capture's
+    warm-up, then two replays) against three eager calls from the same state:
+    the same bits in the parameters, Adam's state, beta, the counter, the
+    replay and the generator; the MLP kernel's launches counted per replay."""
+    from marlpde_tpu_torch.train import trainer
+    from marlpde_tpu_torch.utils import graphs
+    cfg, ts, rep, g = _learner(cuda, mode)
+    ts_e, rep_e, g_e = _copies(ts, rep, g)
+    with graphs.eager():
+        before = mlp.launches
+        _, _, m_e = trainer.run_updates(cfg, ts_e, rep_e, g_e, 3)
+        per_update = (mlp.launches - before) / 3
+    before, replays = mlp.launches, graphs.replays
+    _, _, m_g = trainer.run_updates(cfg, ts, rep, g, 3)
+    torch.cuda.synchronize()
+    assert graphs.replays - replays == 2
+    assert mlp.launches - before == 3 * per_update == (3 if mode == "experience" else 0)
+    left = list(ts.net.parameters()) + [s for st in ts.opt.state.values() for s in st.values()]
+    right = list(ts_e.net.parameters()) + [s for st in ts_e.opt.state.values()
+                                           for s in st.values()]
+    left += [ts.beta, ts.n_updates, *graphs.tensors(rep), g.get_state()]
+    right += [ts_e.beta, ts_e.n_updates, *graphs.tensors(rep_e), g_e.get_state()]
+    assert int(ts.n_updates) == 3 and len(left) == len(right)
+    assert all(_same_bits(a, b) for a, b in zip(left, right))
+    assert all(_same_bits(m_g[k], m_e[k]) for k in m_e)
+
+
+@pytest.mark.parametrize("preset", ["burger", "ks"])
+def test_graph_replays_of_the_macro_step_match_eager_calls(cuda, preset):
+    """Two collections through the captured macro-step (the flagship's
+    whole-batch env with both kernels; KS with the MLP kernel) against the
+    eager loop: the same trajectories and final states, and the kernels'
+    launches counted per replay."""
+    from marlpde_tpu_torch.envs import registry, rollout
+    from marlpde_tpu_torch.rl import vracer
+    from marlpde_tpu_torch.train import trainer
+    from marlpde_tpu_torch.utils import graphs
+    kw = (dict(N_dns=64, grid_size=32, num_actions=32, num_agents=4, dt=0.01, T=0.5, nu=0.05,
+               episode_length=5, ic_case="turbulence", spectral_reward=True)
+          if preset == "burger" else
+          dict(N_dns=64, grid_size=16, num_actions=16, episode_length=5))
+    env = registry.make_env(preset, device=cuda, **kw)
+    assert env.whole_batch == (preset == "burger")
+    rl_cfg = trainer.default_rl_config(env, width=128)
+    ts = vracer.init_train(rl_cfg, torch.Generator(device=cuda).manual_seed(1), device=cuda)
+    outs = {}
+    for path in ("eager", "graphs"):
+        g = torch.Generator(device=cuda).manual_seed(2)
+        counts = (abcn.launches, mlp.launches)
+        with graphs.eager() if path == "eager" else contextlib.nullcontext():
+            outs[path] = [rollout.collect_episodes(env, rl_cfg, ts, g, 6, base)
+                          for base in (0, 6)] + [g.get_state()]
+        torch.cuda.synchronize()
+        outs[path + " launches"] = (abcn.launches - counts[0], mlp.launches - counts[1])
+    T = env.episode_length
+    assert outs["graphs launches"] == outs["eager launches"] == (
+        (2 * T if preset == "burger" else 0), 2 * T)
+    for (te, fe), (tg, fg) in zip(outs["eager"][:2], outs["graphs"][:2]):
+        assert set(te) == set(tg) and all(_same_bits(te[k], tg[k]) for k in te)
+        names = [f.name for f in dataclasses.fields(fe)]
+        differ = [(i, a.dtype, tuple(a.shape)) for i, (a, b) in enumerate(
+            zip(graphs.tensors(fe), graphs.tensors(fg))) if not _same_bits(a, b)]
+        assert not differ, (names, differ)
+    assert torch.equal(outs["eager"][2], outs["graphs"][2])
+
+
+def test_registered_generator_advances_as_eager_draws(cuda):
+    """A generator registered with a graph: n replays draw what n eager calls
+    draw, leave the same state (what a checkpoint saves), and follow a
+    set_state (what a resume does) on the next replay."""
+    from marlpde_tpu_torch.utils import checkpoint, graphs
+    g = torch.Generator(device=cuda).manual_seed(5)
+    start = g.get_state()
+    out = torch.empty(3, 7, device=cuda)
+
+    def draw():
+        out.copy_(torch.randn(3, 7, generator=g, device=cuda))
+
+    first, graph = graphs.capture("draw", draw, cuda, generators=[g])
+    drawn = [out.clone()]                          # the warm-up's draw
+    for _ in range(4):
+        graph.replay()
+        drawn.append(out.clone())
+    after = g.get_state()
+    e = torch.Generator(device=cuda)
+    e.set_state(start)
+    eager = [torch.randn(3, 7, generator=e, device=cuda) for _ in range(5)]
+    assert all(torch.equal(a, b) for a, b in zip(drawn, eager))
+    assert torch.equal(after, e.get_state())
+    assert np.array_equal(checkpoint.generator_state(g), e.get_state().numpy())
+    g.set_state(start)
+    graph.replay()
+    assert torch.equal(out, eager[0])

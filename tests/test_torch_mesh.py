@@ -148,12 +148,12 @@ def invariants(spec):
         ts, rep, hist = pmesh.run_generations(env, cfg(env, mode), mesh, envs_per_device=2,
                                               updates_per_gen=2, n_generations=2)
         shard = pmesh.make_sharded_generation(env, cfg(env, mode), mesh, 2, 1)[1]()
-        out[mode] = dict(digest=digest(ts), n_updates=ts.n_updates, returns=hist["mean_return"],
+        out[mode] = dict(digest=digest(ts), n_updates=int(ts.n_updates), returns=hist["mean_return"],
                          experiences=hist["experiences"], shard=shard.obs.shape[0])
     burger = registry.make_env("burger", device="cpu", **spec["small"])
     ts, _, hist = pmesh.run_generations(burger, cfg(burger, "episode", replay_max_experiences=800),
                                         mesh, envs_per_device=1, updates_per_gen=1, n_generations=1)
-    out["burger"] = dict(returns=hist["mean_return"], n_updates=ts.n_updates, digest=digest(ts))
+    out["burger"] = dict(returns=hist["mean_return"], n_updates=int(ts.n_updates), digest=digest(ts))
     c = cfg(env, "episode")
     _, _, hist = pmesh.run_generations(env, c, mesh, 2, 1, 3, testing_frequency=2,
                                        testing_episodes=2, checkpoint_dir=spec["ckpt"],

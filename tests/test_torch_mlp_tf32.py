@@ -126,7 +126,7 @@ def test_w2_image_is_rebuilt_when_w2_changes_in_place():
     assert mlp._cached_w2_image(tn) is first and mlp.w2_splits == before + 1
     with torch.no_grad():
         tn.hidden[1].weight.add_(1.0)
-    second = mlp._cached_w2_image(tn)
+    second = mlp._cached_w2_image(tn).clone()
     assert mlp.w2_splits == before + 2
     assert torch.equal(second, mlp.w2_image(tn.hidden[1].weight.detach()))
     opt = torch.optim.Adam(tn.parameters(), lr=0.1)
