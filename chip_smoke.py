@@ -92,9 +92,13 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    a-posteriori checks), a transfer step with frozen layers, and the card's
    DNS against the CPU's from the same draws;
 20. [mesh] the run-918 flags with --mesh through the CLI at a world of 1 on
-   NCCL (RUN_MESH: 3 generations, updates from the second, then --resume for
-   a fourth), with seconds per generation and ms per update beside
-   [cli-breakdown]'s, and the all_reduces per update and their time;
+   NCCL (RUN_MESH: 3 generations, updates from the second, each a replay of
+   one update captured with its all_reduces, then --resume for a fourth);
+   the same 3 generations under graphs.eager(), held bit for bit against the
+   graphed ones; the captures of each run (one macro-step and one update);
+   seconds per generation and ms per update graphed and eager (CUDA events
+   around the replays) beside [cli-breakdown]'s, and the all_reduces per
+   update, counted per replay as the kernels' launches are;
 21. [mesh-2] two ranks on the card under gloo, spawned by
    ``python -m marlpde_tpu_torch.parallel.dryrun --device cuda``: the dry run
    (both minibatch modes, train states equal bit for bit across the ranks,
@@ -110,9 +114,9 @@ its dry run's small flagship (ABCN B=1 at N=16; MLP width 32, DRYRUN_ROWS).
 A [timing] line gives each phase's seconds.
 
 Every training path runs its updates and its collections' macro-steps as
-CUDA graph replays (the mesh paths their collections only: their updates
-all-reduce eagerly), and a replay adds to each kernel's count the launches
-its capture saw.  Launch counts are set to 0 just before each path and read
+CUDA graph replays ([mesh-2]'s gloo ranks their collections only: gloo
+all-reduces through the host, which a capture refuses), and a replay adds to
+each kernel's count the launches its capture saw.  Launch counts are set to 0 just before each path and read
 just after; the comparisons of a kernel with its plain version are not
 counted.  The
 flagship Burgers paths (main, cli, cli_w256, cli_test, mesh, mesh2; mesh2's
@@ -132,6 +136,7 @@ script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import io
@@ -2140,14 +2145,18 @@ def phase_ddp(dev):
 
 @contextlib.contextmanager
 def _all_reduces():
-    """Count and time every torch.distributed.all_reduce: yields a list that
-    gets (CUDA start event, end event, host seconds, backend) per call."""
+    """Record every torch.distributed.all_reduce: yields a list that gets
+    (CUDA start event, end event, host seconds, backend) per call made
+    outside a capture (a capture refuses timing events: the calls it records
+    run in the replays, which ``pmesh.all_reduces`` counts)."""
     import torch
     import torch.distributed as dist
     real = dist.all_reduce
     calls = []
 
     def timed(tensor, *args, group=None, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            return real(tensor, *args, group=group, **kw)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         start.record()
@@ -2165,82 +2174,115 @@ def _all_reduces():
 
 def phase_mesh(cli_ms_per_update):
     """The run-918 flags with --mesh at a world of 1 through the CLI: the NCCL
-    group, 3 generations (updates from the second) and --resume for a
-    fourth; seconds per generation and ms per update beside [cli-breakdown]'s,
-    the all_reduces per update and their time.  Returns the path's launches."""
+    group, 3 generations (updates from the second, replays of one update
+    captured with its all_reduces) and --resume for a fourth; the same 3
+    generations under ``graphs.eager()``, held bit for bit against the
+    graphed ones.  Prints seconds per generation, ms per update graphed and
+    eager beside [cli-breakdown]'s, the all_reduces per update (counted per
+    replay) and the captures of each run.  Returns the graphed runs'
+    launches."""
     import numpy as np
     import torch
     import torch.distributed as dist
 
-    from marlpde_tpu_torch.rl import vracer
+    from marlpde_tpu_torch.parallel import mesh as pmesh
+    from marlpde_tpu_torch.train import trainer
+    from marlpde_tpu_torch.utils import graphs
 
-    def run(argv, tag):
-        # the updates' seconds of a generation: from the first update's call
-        # (the replay gate's readback has just synchronized) to the end of
-        # the generation (synchronized before the callback)
-        marks, starts, real = [], [], vracer.update_experience
+    def run(argv, tag, eager=False):
+        # CUDA events around each generation's updates (replays, or eager
+        # calls), the captures made, and after each generation the
+        # all_reduces and updates so far
+        marks, timed, captures = [], [], collections.Counter()
+        real_updates, real_capture = trainer.run_updates, graphs.capture
 
-        def update(*args, **kw):
-            starts.append(time.perf_counter())
-            return real(*args, **kw)
+        def run_updates(*args, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real_updates(*args, **kw)
+            end.record()
+            timed.append((start, end))
+            return out
+
+        def capture(name, fn, *args, **kw):
+            captures[name + (" (test)" if getattr(fn, "deterministic", False) else "")] += 1
+            return real_capture(name, fn, *args, **kw)
 
         def also(gen, ts, rep, hist):
-            now, before = time.perf_counter(), marks[-1][3] if marks else 0
-            upd_s = now - starts[before] if len(starts) > before else 0.0
-            marks.append((len(calls), int(ts.n_updates), upd_s, len(starts)))
+            marks.append((pmesh.all_reduces, int(ts.n_updates), len(timed)))
 
-        vracer.update_experience = update
+        trainer.run_updates, graphs.capture = run_updates, capture
+        pmesh.all_reduces = 0
         try:
-            with _all_reduces() as calls:
+            with _all_reduces() as calls, graphs.eager() if eager else contextlib.nullcontext():
                 ts, rep, hist, rows, launches = _cli(argv, tag, also)
                 torch.cuda.synchronize()
         finally:
-            vracer.update_experience = real
+            trainer.run_updates, graphs.capture = real_updates, real_capture
         check(not dist.is_initialized(), f"{tag}: the CLI left its process group behind")
         check({c[3] for c in calls} == {"nccl"}, f"{tag}: all_reduce backends "
                                                   f"{ {c[3] for c in calls} }")
         _check_state_on_card(tag, ts, rep)
-        prev_calls = 0
-        for r, (n_calls, n_upd, upd_s, _) in zip(rows, marks):
-            print(f"[{tag}] gen {r['gen']}: {r['s']:.3f} s ({upd_s:.3f} s of updates), "
-                  f"mean_return {hist['mean_return'][r['gen'] - 1]:.6f}, ep_len "
+        prev = 0
+        for r, (n_calls, n_upd, _) in zip(rows, marks):
+            print(f"[{tag}] gen {r['gen']}: {r['s']:.3f} s, mean_return "
+                  f"{hist['mean_return'][r['gen'] - 1]:.6f}, ep_len "
                   f"{hist['mean_ep_len'][r['gen'] - 1]:.1f}, n_updates {n_upd}, "
-                  f"all_reduces +{n_calls - prev_calls}, launches abcn +{r['d_abcn']} "
+                  f"all_reduces +{n_calls - prev}, launches abcn +{r['d_abcn']} "
                   f"mlp +{r['d_mlp']}", flush=True)
             check(r["d_abcn"] >= 500 and r["d_mlp"] >= 500 and np.isfinite(
                 hist["mean_return"][r["gen"] - 1]), f"{tag} gen {r['gen']}")
-            prev_calls = n_calls
+            prev = n_calls
+        upd_ms = [s.elapsed_time(e) / MESH_UPDATES for s, e in timed]
+        print(f"[{tag}] captures: {dict(captures)}; ms per update in each generation with "
+              f"updates (CUDA events around the {'eager calls' if eager else 'replays'}): "
+              f"{', '.join(f'{m:.4f}' for m in upd_ms) or 'none'}")
         device_ms = [c[0].elapsed_time(c[1]) for c in calls]
         host_ms = [1000 * c[2] for c in calls]
-        return ts, hist, rows, marks, launches, device_ms, host_ms
+        return ts, rep, hist, rows, marks, launches, captures, upd_ms, device_ms, host_ms
 
-    ts, hist, rows, marks, launches, device_ms, host_ms = run(RUN_MESH + ["--NE", "15000"],
-                                                              "mesh")
+    flags = RUN_MESH + ["--NE", "15000"]
+    ts, rep, hist, rows, marks, launches, captures, upd_ms, _, _ = run(flags, "mesh")
     check(hist["gen"] == [1, 2, 3] and [m[1] for m in marks] == [0, MESH_UPDATES,
                                                                  2 * MESH_UPDATES],
           f"mesh: generations {hist['gen']}, updates {[m[1] for m in marks]}")
     check(hist["experiences"] == [g * 10 * 500 for g in (1, 2, 3)], f"mesh {hist['experiences']}")
+    check(captures == {"burger-marl macro-step": 1, "experience-mode update": 1},
+          f"mesh: captures in the run {dict(captures)} (one macro-step and one update a run)")
     per_gen = [marks[0][0]] + [b[0] - a[0] for a, b in zip(marks, marks[1:])]
     per_update = (per_gen[1] - per_gen[0]) / MESH_UPDATES
-    check(per_update == int(per_update) and per_gen[2] == per_gen[1],
+    check(per_update == int(per_update) >= 1 and per_gen[2] == per_gen[1],
           f"mesh: all_reduces per generation {per_gen}")
-    upd_ms = [1000 * m[2] / MESH_UPDATES for m in marks[1:]]
+
+    # the same generations eagerly (a comparison: their launches do not count)
+    e_ts, e_rep, e_hist, e_rows, _, _, e_captures, e_upd_ms, e_dev, e_host = run(
+        flags + ["--run", "90"], "mesh-eager", eager=True)
+    check(not e_captures, f"mesh-eager: captures {dict(e_captures)}")
+    left = graphs.tensors((list(ts.net.parameters()), list(ts.opt.state.values()), ts.beta,
+                           ts.n_updates, ts.obs_stats, ts.rew_stats, rep))
+    right = graphs.tensors((list(e_ts.net.parameters()), list(e_ts.opt.state.values()),
+                            e_ts.beta, e_ts.n_updates, e_ts.obs_stats, e_ts.rew_stats, e_rep))
+    same = sum(_same(a, b)[0] for a, b in zip(left, right))
+    print(f"[mesh] graphed against eager over 3 generations: {same} of {len(left)} tensors "
+          f"bitwise equal (parameters, Adam's state, beta, the counter, the normalizers, "
+          f"the replay shard); returns {hist['mean_return']} against {e_hist['mean_return']}")
+    check(same == len(left) == len(right) and hist["mean_return"] == e_hist["mean_return"],
+          "mesh: the graphed generations differ from the eager ones")
     gen_s = ", ".join(f"{r['s']:.3f}" for r in rows)
-    print(f"[mesh] seconds per generation {gen_s} (generation 1 collects and inserts, 2 and 3 "
-          f"also run {MESH_UPDATES} updates); ms per update {upd_ms[0]:.3f} and "
-          f"{upd_ms[1]:.3f} in generations 2 and 3, [cli-breakdown] "
-          f"{cli_ms_per_update:.3f} in this call "
-          f"({100 * (min(upd_ms) / cli_ms_per_update - 1):+.1f}% to "
-          f"{100 * (max(upd_ms) / cli_ms_per_update - 1):+.1f}%)")
-    gen2 = device_ms[marks[0][0]:marks[1][0]]
+    e_gen_s = ", ".join(f"{r['s']:.3f}" for r in e_rows)
+    print(f"[mesh] seconds per generation graphed {gen_s}, eager {e_gen_s} (generation 1 "
+          f"collects and inserts, 2 and 3 also run {MESH_UPDATES} updates); ms per update "
+          f"graphed {upd_ms[-1]:.4f} (generation 3: replays only; generation 2 with the "
+          f"capture {upd_ms[0]:.4f}), eager {e_upd_ms[0]:.4f} and {e_upd_ms[1]:.4f}; "
+          f"[cli-breakdown] {cli_ms_per_update:.4f} in this call "
+          f"({100 * (upd_ms[-1] / cli_ms_per_update - 1):+.1f}%)")
     print(f"[mesh] all_reduces: {per_gen[0]} a generation outside the updates (normalizers, "
           f"replay gate, stats) and {int(per_update)} per update (gradients, off-policy "
-          f"counts); device time {np.median(device_ms):.4f} ms median per call, "
-          f"{sum(gen2) / MESH_UPDATES:.4f} ms per update in generation 2; host "
-          f"{np.median(host_ms):.4f} ms median per call (NCCL, world 1)")
+          f"counts), inside each replay; eager device time {np.median(e_dev):.4f} ms "
+          f"median per call, host {np.median(e_host):.4f} ms (NCCL, world 1)")
 
-    ts, hist, rows2, marks2, launches2, _, _ = run(RUN_MESH + ["--NE", "20000", "--resume"],
-                                                   "mesh-resume")
+    hist, rows2, marks2, launches2 = run(RUN_MESH + ["--NE", "20000", "--resume"],
+                                         "mesh-resume")[2:6]
     check(hist["gen"] == [1, 2, 3, 4] and marks2[-1][1] == 2 * MESH_UPDATES,
           f"mesh resume: generations {hist['gen']}, n_updates {marks2[-1][1]} (the replay "
           f"restarts empty: 5000 live steps, under --rstart)")

@@ -169,10 +169,13 @@ class MacroStep:
 
 def _graphed_collection(env: Env, rl_cfg, ts, generator, state, obs, deterministic,
                         record_fields, consts):
-    """The MacroStep captured for (env, consts, generator, batch, mode) on this
-    network, reset to ``state``/``obs``; the first collection of a key runs
-    its first macro-step for real (the capture's warm-up)."""
-    key = ("collect", obs.shape[0], env.episode_length, deterministic, record_fields,
+    """The MacroStep captured for (env, consts, generator, batch, mode, RL
+    config) on this network, reset to ``state``/``obs``; the first collection
+    of a key runs its first macro-step for real (the capture's warm-up).  The
+    step reads ``rl_cfg`` by value (the action bounds, the observation
+    scaling), so the config is part of the key: it is a frozen dataclass,
+    equal and hashed field by field."""
+    key = ("collect", rl_cfg, obs.shape[0], env.episode_length, deterministic, record_fields,
            graphs.pointers(list(ts.net.parameters())), graphs.pointers(consts))
     # a deterministic step draws nothing: any generator replays it
     generators = [] if deterministic or generator is None else [generator]

@@ -22,9 +22,17 @@ too.  Barriers and host-side checks go through a gloo group on CPU tensors
 
 Random streams: JAX folds the device index into a split key.  The port keeps
 one host CPU generator, seeded identically on every rank.  It draws the seed
-of the initial weights, then W seeds each generation: rank r seeds its device
-generator with the r-th, which draws the rank's resets, action noise and
-minibatches.  A checkpoint's meta holds the host generator's state.
+of the initial weights, then W seeds each generation: rank r reseeds its one
+device generator with the r-th, which draws the rank's resets, action noise
+and minibatches.  A checkpoint's meta holds the host generator's state.
+
+On the card the JAX package runs a generation as one program
+(``jax.jit(shard_map(...))``, marlpde_tpu/parallel/mesh.py:215); the port
+replays CUDA graphs (utils/graphs.py).  Every rank's collection replays its
+macro-step graph.  On NCCL each rank's updates replay one captured update,
+its all_reduces inside the graph (``Mesh.captures``); gloo ranks run their
+updates eagerly.  The rank keeps its device generator for the whole run, so
+the graphs that registered it are captured once a run, not once a generation.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ import dataclasses
 import datetime
 import os
 import socket
+import sys
 import time
 from typing import Any, Optional
 
@@ -44,11 +53,18 @@ from marlpde_tpu_torch.envs.rollout import Env, collect_episodes
 from marlpde_tpu_torch.kernels import build
 from marlpde_tpu_torch.rl import replay as replay_mod
 from marlpde_tpu_torch.rl import replay_flat, running_stats, vracer
+from marlpde_tpu_torch.train import trainer
 from marlpde_tpu_torch.utils import checkpoint as ckpt
+from marlpde_tpu_torch.utils import graphs
 
 # a rank that waits longer than this in a collective fails the run
 TIMEOUT = datetime.timedelta(minutes=10)
 _SEED_HIGH = 2**62
+
+# the training path's all_reduces since the last reset (``Mesh.psum`` and
+# ``pmean``); a replay adds those its capture saw
+all_reduces = 0
+graphs.count_per_replay(sys.modules[__name__], "all_reduces")
 
 
 def free_port() -> int:
@@ -104,7 +120,19 @@ class Mesh:
     group: Any            # the training path's all_reduces
     host_group: Any       # gloo on CPU tensors: barriers, host-side checks
 
+    @property
+    def captures(self) -> bool:
+        """Whether the rank's updates, all_reduces included, replay as CUDA
+        graphs on the card: on NCCL, whose collectives a capture records as
+        kernels on the card.  Gloo stays eager (ranks sharing a card, and the
+        CPU): it copies a CUDA tensor through the host for each all_reduce,
+        which a capture refuses.  The backend is the same on every rank, so
+        every rank decides alike."""
+        return self.backend == "nccl"
+
     def _all_reduce(self, tensors, mean: bool):
+        global all_reduces
+        all_reduces += 1
         flat = torch.cat([t.reshape(-1) for t in tensors])
         dist.all_reduce(flat, group=self.group)
         if mean:
@@ -221,16 +249,14 @@ def make_sharded_generation(env: Env, rl_cfg: vracer.VracerConfig, mesh: Mesh,
             total = mesh.psum([torch.tensor(replay_flat.num_experiences(rep),
                                             device=mesh.device)])[0]
             if int(total) >= rl_cfg.replay_start_experiences:
-                for _ in range(updates_per_gen):
-                    ts, rep, _ = vracer.update_experience(rl_cfg, ts, rep, generator,
-                                                          group=mesh, mini_batch=mb_local)
+                ts, rep, _ = trainer.run_updates(rl_cfg, ts, rep, generator, updates_per_gen,
+                                                 group=mesh, mini_batch=mb_local)
             return ts, rep, stats(traj, final, replay_flat.num_experiences(rep))
         rep = replay_mod.add_episodes(rep, traj)
         ts = sync_normalizers(mesh, vracer.observe_episodes(rl_cfg, ts, traj))
         if replay_mod.num_experiences(rep) * W >= rl_cfg.replay_start_experiences:
-            for _ in range(updates_per_gen):
-                batch = replay_mod.sample_episodes(rep, generator, rl_cfg.mini_batch_episodes)
-                ts, _ = vracer.update(rl_cfg, ts, batch, group=mesh)
+            ts, rep, _ = trainer.run_updates(rl_cfg, ts, rep, generator, updates_per_gen,
+                                             group=mesh)
         return ts, rep, stats(traj, final, replay_mod.num_experiences(rep))
 
     def init_replay_shard():
@@ -303,9 +329,12 @@ def run_generations(env: Env, rl_cfg, mesh: Mesh, envs_per_device: int,
                            gen_now * W * envs_per_device, rl_cfg=rl_cfg)
         mesh.barrier()
 
+    # the rank's device generator, reseeded in place each generation: the
+    # graphs that registered it follow the reseed and stay cached
+    generator = torch.Generator(device=mesh.device)
     t0 = time.time()
     for g in range(n_generations):
-        generator = _device_generator(mesh, _seeds(host, W)[mesh.rank])
+        generator.manual_seed(_seeds(host, W)[mesh.rank])
         ts, rep, stats = gen_fn(ts, rep, generator, (gen0 + g) * W * envs_per_device)
         gen_now = gen0 + g + 1
         history["gen"].append(gen_now)
@@ -326,4 +355,7 @@ def run_generations(env: Env, rl_cfg, mesh: Mesh, envs_per_device: int,
         if callback is not None:
             callback(gen_now, ts, rep, history)
     save(gen0 + n_generations)
+    # NCCL does not destroy a communicator while a CUDA graph that holds its
+    # collectives lives: the run's update graphs end with the run
+    graphs.forget(mesh)
     return ts, rep, history

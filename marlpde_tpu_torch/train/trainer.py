@@ -130,54 +130,69 @@ def _updates_started(rl_cfg, rep) -> bool:
     return rep.filled >= rl_cfg.replay_start_episodes
 
 
-def _update(rl_cfg, ts, rep, generator):
-    """One update of either minibatch mode, in place; returns its metrics."""
+def _update(rl_cfg, ts, rep, generator, group=None, mini_batch=None):
+    """One update of either minibatch mode, in place; returns its metrics.
+    Under ``group`` (a ``parallel.mesh.Mesh``) ``rep`` is the rank's shard
+    and ``mini_batch`` its slice of an experience-mode minibatch."""
     if rl_cfg.minibatch_mode == "experience":
-        return vracer.update_experience(rl_cfg, ts, rep, generator)[2]
+        return vracer.update_experience(rl_cfg, ts, rep, generator, group=group,
+                                        mini_batch=mini_batch)[2]
     batch = replay_mod.sample_episodes(rep, generator, rl_cfg.mini_batch_episodes)
-    return vracer.update(rl_cfg, ts, batch)[1]
+    return vracer.update(rl_cfg, ts, batch, group=group)[1]
 
 
-def _update_key(rl_cfg, ts, rep):
-    return ("update", rl_cfg, graphs.pointers(
+def _update_key(rl_cfg, ts, rep, mini_batch):
+    return ("update", rl_cfg, mini_batch, graphs.pointers(
         (list(ts.net.parameters()), list(ts.opt.state.values()), ts.beta, ts.n_updates,
          rep, rep.counters)))
 
 
-def _update_graph(rl_cfg, ts, rep, generator):
-    """(the update captured for this train state, replay and generator, the
-    warm-up's metrics or None).  The graph reads the normalizers from its own
-    buffers, which each call copies into; everything else it reads and writes
-    in place (the module, Adam's state, beta, the counter, the replay)."""
-    objects = (ts.net, rep, generator)
-    hit = graphs.cached(_update_key(rl_cfg, ts, rep), objects)
+def _update_graph(rl_cfg, ts, rep, generator, group, mini_batch):
+    """(the update captured for this train state, replay, generator and
+    group, the warm-up's metrics or None).  The graph reads the normalizers
+    from its own buffers, which each call copies into; everything else it
+    reads and writes in place (the module, Adam's state, beta, the counter,
+    the replay).
+
+    Under ``group`` the capture holds the update's all_reduces.  A rank that
+    replays while another captures would wait for collectives the capture
+    only records, so the ranks agree first: every rank captures when any
+    rank's key missed."""
+    objects = (ts.net, rep, generator, group)
+    hit = graphs.cached(_update_key(rl_cfg, ts, rep, mini_batch), objects)
+    if group is not None and not all(group.all_gather_object(hit is not None)):
+        hit = None
     if hit is not None:
         static_ts, graph = hit
         graphs.copy_((static_ts.obs_stats, static_ts.rew_stats), (ts.obs_stats, ts.rew_stats))
         return graph, None
     static_ts = dataclasses.replace(ts, obs_stats=graphs.clone(ts.obs_stats),
                                     rew_stats=graphs.clone(ts.rew_stats))
-    first, graph = graphs.capture(f"{rl_cfg.minibatch_mode}-mode update",
-                                  lambda: _update(rl_cfg, static_ts, rep, generator),
-                                  ts.beta.device, generators=[generator])
+    first, graph = graphs.capture(
+        f"{rl_cfg.minibatch_mode}-mode update",
+        lambda: _update(rl_cfg, static_ts, rep, generator, group, mini_batch),
+        ts.beta.device, generators=[generator])
     # under the key the next call computes: the warm-up made Adam's state
-    graphs.store(_update_key(rl_cfg, ts, rep), objects, (static_ts, graph))
+    graphs.store(_update_key(rl_cfg, ts, rep, mini_batch), objects, (static_ts, graph))
     return graph, first
 
 
-def run_updates(rl_cfg, ts, rep, generator, n: int):
+def run_updates(rl_cfg, ts, rep, generator, n: int, group=None, mini_batch=None):
     """``n`` sequential updates from ``generator``; returns (ts, rep, the last
     update's metrics, {} when n is 0).  On the card they are replays of one
     captured update (the first call for a train state also runs one update
-    for real, the capture's warm-up); elsewhere direct calls."""
+    for real, the capture's warm-up); elsewhere direct calls.  Under
+    ``group`` (the rank's ``Mesh``, with ``mini_batch`` its experience-mode
+    slice) the updates average over the ranks, and they are replays only
+    where the group's collectives can be captured (``Mesh.captures``)."""
     metrics = {}
-    if n and graphs.enabled(ts.beta.device):
-        graph, metrics = _update_graph(rl_cfg, ts, rep, generator)
+    if n and graphs.enabled(ts.beta.device) and (group is None or group.captures):
+        graph, metrics = _update_graph(rl_cfg, ts, rep, generator, group, mini_batch)
         for _ in range(n - (metrics is not None)):
             metrics = graph.replay()
         return ts, rep, {k: v.clone() for k, v in metrics.items()}
     for _ in range(n):
-        metrics = _update(rl_cfg, ts, rep, generator)
+        metrics = _update(rl_cfg, ts, rep, generator, group, mini_batch)
     return ts, rep, metrics
 
 

@@ -23,7 +23,9 @@ A step that is captured obeys three rules:
 optimizer's state, cuBLAS and cuFFT plans, the kernels' libraries), then
 records it.  The hand-written kernels count their launches in Python, which a
 replay skips: the capture records what each wrapper counted, puts the counters
-back, and every replay adds those numbers again.
+back, and every replay adds those numbers again.  Other counters that a
+step's Python advances join through ``count_per_replay`` (the mesh's
+all_reduces, parallel/mesh.py).
 
 Graphs are only for CUDA tensors, and a failed capture or replay raises: no
 step quietly runs eagerly instead.  The callers run their steps directly where
@@ -48,6 +50,8 @@ replays = 0
 
 # the wrappers whose ``launches`` counters a replay advances
 _COUNTED = (abcn, mlp)
+# other counters a replay advances: (module, attribute) pairs
+_OTHERS: list = []
 _eager_depth = 0
 
 
@@ -91,25 +95,38 @@ class CudaGraph:
 new_graph = CudaGraph
 
 
+def count_per_replay(module, name: str):
+    """Have every replay add to ``module.<name>`` what the step added to it
+    while it was captured, as a replay does for the kernels' launches."""
+    if (module, name) not in _OTHERS:
+        _OTHERS.append((module, name))
+
+
+def _counters():
+    return [(m, "launches") for m in _COUNTED] + _OTHERS
+
+
 def _counts():
-    return [m.launches for m in _COUNTED]
+    return [getattr(m, a) for m, a in _counters()]
 
 
 def _set_counts(counts):
-    for m, n in zip(_COUNTED, counts):
-        m.launches = n
+    for (m, a), n in zip(_counters(), counts):
+        setattr(m, a, n)
 
 
 @dataclasses.dataclass
 class StepGraph:
     """A captured step.  ``out`` is its static output: every replay overwrites
     it.  ``launches`` holds the hand-written kernels' launches in one replay
-    (in the order of ``_COUNTED``)."""
+    (in the order of ``_COUNTED``), ``others`` what one replay adds to the
+    counters of ``count_per_replay`` (in its order)."""
 
     name: str
     graph: object
     out: object
     launches: tuple
+    others: tuple = ()
 
     def replay(self):
         global replays
@@ -118,7 +135,7 @@ class StepGraph:
         except RuntimeError as e:
             e.add_note(f"[graphs] while replaying {self.name}")
             raise
-        _set_counts([n + k for n, k in zip(_counts(), self.launches)])
+        _set_counts([n + k for n, k in zip(_counts(), self.launches + self.others)])
         replays += 1
         return self.out
 
@@ -152,9 +169,10 @@ def capture(name: str, fn, device, generators=()):
         raise
     finally:
         # the capture launched nothing: what the wrappers counted is per replay
-        launches = tuple(a - b for a, b in zip(_counts(), before))
+        per_replay = tuple(a - b for a, b in zip(_counts(), before))
         _set_counts(before)
-    return first, StepGraph(name, graph, out, launches)
+    k = len(_COUNTED)
+    return first, StepGraph(name, graph, out, per_replay[:k], per_replay[k:])
 
 
 # the graphs kept, least recently used first: (key, ids, settings) -> (objects, value)
@@ -189,6 +207,12 @@ def store(key, objects, value):
     _CACHE[(key, tuple(map(id, objects)), _settings())] = (tuple(objects), value)
     while len(_CACHE) > MAX_GRAPHS:
         _CACHE.popitem(last=False)
+
+
+def forget(obj):
+    """Drop every graph that ``store`` kept with ``obj`` among its objects."""
+    for k in [k for k, (objs, _) in _CACHE.items() if any(o is obj for o in objs)]:
+        del _CACHE[k]
 
 
 def tensors(tree) -> list:

@@ -541,3 +541,68 @@ def test_registered_generator_advances_as_eager_draws(cuda):
     g.set_state(start)
     graph.replay()
     assert torch.equal(out, eager[0])
+
+
+def test_registered_generator_follows_a_manual_seed(cuda):
+    """The mesh reseeds its rank's generator in place every generation: a
+    replay after ``manual_seed`` draws what an eager call draws after the
+    same reseed, and so does the next replay."""
+    from marlpde_tpu_torch.utils import graphs
+    g = torch.Generator(device=cuda).manual_seed(5)
+    out = torch.empty(3, 7, device=cuda)
+
+    def draw():
+        out.copy_(torch.randn(3, 7, generator=g, device=cuda))
+
+    _, graph = graphs.capture("draw", draw, cuda, generators=[g])
+    graph.replay()
+    e = torch.Generator(device=cuda)
+    for seed in (9, 2**61 + 3):
+        g.manual_seed(seed)
+        e.manual_seed(seed)
+        for _ in range(2):
+            graph.replay()
+            assert torch.equal(out, torch.randn(3, 7, generator=e, device=cuda))
+        assert torch.equal(g.get_state(), e.get_state())
+
+
+@pytest.mark.parametrize("mode", ["experience", "episode"])
+def test_mesh_update_replays_with_nccl_all_reduces_match_eager_calls(cuda, mode):
+    """A world of 1 on NCCL: four updates through run_updates with the mesh
+    (the first for real, the capture's warm-up, then three replays of the
+    update captured with its all_reduces) against four eager calls from the
+    same state: the same bits, and each replay counts the update's
+    all_reduces (experience mode: the reward-scale and off-policy sums and
+    the gradients' mean; episode mode: one mean)."""
+    import torch.distributed as dist
+    from marlpde_tpu_torch.parallel import mesh as pmesh
+    from marlpde_tpu_torch.train import trainer
+    from marlpde_tpu_torch.utils import graphs
+    started = not dist.is_initialized()
+    mesh = pmesh.make_mesh(cuda)
+    try:
+        assert mesh.world == 1 and mesh.backend == "nccl" and mesh.captures
+        cfg, ts, rep, g = _learner(cuda, mode)
+        ts_e, rep_e, g_e = _copies(ts, rep, g)
+        with graphs.eager():
+            before = pmesh.all_reduces
+            _, _, m_e = trainer.run_updates(cfg, ts_e, rep_e, g_e, 4, group=mesh, mini_batch=8)
+            per_update = (pmesh.all_reduces - before) / 4
+        before, replays = pmesh.all_reduces, graphs.replays
+        _, _, m_g = trainer.run_updates(cfg, ts, rep, g, 4, group=mesh, mini_batch=8)
+        torch.cuda.synchronize()
+        assert graphs.replays - replays == 3
+        assert per_update == (3 if mode == "experience" else 1)
+        assert pmesh.all_reduces - before == 4 * per_update
+    finally:
+        graphs.forget(mesh)
+        if started:
+            dist.destroy_process_group()
+    left = list(ts.net.parameters()) + [s for st in ts.opt.state.values() for s in st.values()]
+    right = list(ts_e.net.parameters()) + [s for st in ts_e.opt.state.values()
+                                           for s in st.values()]
+    left += [ts.beta, ts.n_updates, *graphs.tensors(rep), g.get_state()]
+    right += [ts_e.beta, ts_e.n_updates, *graphs.tensors(rep_e), g_e.get_state()]
+    assert int(ts.n_updates) == 4 and len(left) == len(right)
+    assert all(_same_bits(a, b) for a, b in zip(left, right))
+    assert all(_same_bits(m_g[k], m_e[k]) for k in m_e)

@@ -9,9 +9,11 @@ the JAX package: the graphed updates of both minibatch modes across a
 generation boundary (cursor, live count and update counter change), and the
 graphed collection at the flagship's widths on injected actions.  Held
 against the direct path, bit for bit: every env's collection and whole
-training runs of both modes.  And: the W2 image after an optimizer step that
-bumps no version counter, the launch accounting per replay, a capture that
-fails, and Adam's ``capturable`` through a checkpoint's state dict."""
+training runs of both modes; a collection under a second RL config on the
+same objects (fault F1: the config was not in the graph's key).  And: the
+W2 image after an optimizer step that bumps no version counter, the launch
+accounting per replay, a capture that fails, and Adam's ``capturable``
+through a checkpoint's state dict."""
 
 import dataclasses
 
@@ -262,6 +264,36 @@ def test_every_env_collects_the_same_bits_graphed(name, monkeypatch):
             assert torch.equal(a.nan_to_num(), b.nan_to_num())
 
 
+@pytest.mark.parametrize("deterministic", [False, True], ids=["stochastic", "deterministic"])
+def test_a_second_rl_config_gets_its_own_collection_graph(deterministic, monkeypatch):
+    """The macro-step reads the RL config by value (the action bounds, the
+    observation scaling), so a collection under a second config on the same
+    net, env, consts and generator replays a graph of its own: its actions
+    stay within the second config's bounds, bit for bit as the direct call's."""
+    preset, kw = ENVS["burger-marl"]
+    env = treg.make_env(preset, dtype=torch.float64, device="cpu", **kw)
+    wide = ttr.default_rl_config(env, width=8)
+    narrow = dataclasses.replace(wide, action_low=-0.01, action_high=0.01)
+    ts = tv.init_train(wide, torch.Generator().manual_seed(0), dtype=torch.float64,
+                       device="cpu")
+    g = torch.Generator()
+
+    def collect(cfg):
+        g.manual_seed(5)
+        return troll.collect_episodes(env, cfg, ts, g, 3, 0, deterministic=deterministic)
+
+    direct = [collect(cfg) for cfg in (wide, narrow)]
+    standins.use(monkeypatch, standins.Replayed)
+    graphed = [collect(cfg) for cfg in (wide, narrow)]
+    assert direct[0][0]["actions"].abs().max() > 0.5
+    assert graphed[1][0]["actions"].abs().max() <= 0.01
+    for (dt, df), (gt, gf) in zip(direct, graphed):
+        for k in dt:
+            assert torch.equal(dt[k].nan_to_num(), gt[k].nan_to_num()), k
+        for a, b in zip(graphs.tensors(df), graphs.tensors(gf)):
+            assert torch.equal(a.nan_to_num(), b.nan_to_num())
+
+
 @pytest.mark.parametrize("mode", ["experience", "episode"])
 def test_training_graphed_gives_the_direct_bits(mode, monkeypatch):
     """Four generations of ``trainer.train`` with testing, graphed and
@@ -345,6 +377,25 @@ def test_replays_count_the_kernel_launches_the_capture_saw(monkeypatch):
         graph.replay()
     assert (mlp.launches, abcn.launches) == (22, 26)
     assert graphs.replays - replays == 5 and graph.graph.replays == 5
+
+
+def test_replays_count_the_all_reduces_the_capture_saw(monkeypatch):
+    """The mesh counts its all_reduces in Python as well: a replay adds the
+    ones its capture saw, beside the kernels' launches."""
+    from marlpde_tpu_torch.parallel import mesh as pmesh
+    standins.use(monkeypatch, standins.Counted)
+    monkeypatch.setattr(pmesh, "all_reduces", 5)
+    monkeypatch.setattr(mlp, "launches", 0)
+
+    def step():
+        pmesh.all_reduces += 2     # the gradients' pmean and the off-policy psum
+        mlp.launches += 1
+
+    _, graph = graphs.capture("stand-in update", step, "cpu")
+    assert (pmesh.all_reduces, graph.launches, graph.others) == (7, (0, 1), (2,))
+    for _ in range(3):
+        graph.replay()
+    assert (pmesh.all_reduces, mlp.launches) == (13, 4)
 
 
 def test_a_failed_capture_raises_and_restores_the_counts(monkeypatch):

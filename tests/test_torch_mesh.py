@@ -31,6 +31,7 @@ import torch.distributed as dist
 from jax.sharding import Mesh as JMesh
 from jax.sharding import PartitionSpec as P
 
+import graph_standins as standins
 import marlpde_tpu.rl.replay as jreplay
 import marlpde_tpu.rl.replay_flat as jflat
 from marlpde_tpu import run as jrun
@@ -46,6 +47,7 @@ from marlpde_tpu_torch.rl import networks as tnet
 from marlpde_tpu_torch.rl import vracer as tv
 from marlpde_tpu_torch.train import trainer as ttrainer
 from marlpde_tpu_torch.utils import checkpoint as tckpt
+from marlpde_tpu_torch.utils import graphs
 from test_torch_interop import np_tree, params64
 
 torch.set_num_threads(1)
@@ -624,6 +626,150 @@ def test_cli_mesh_under_two_ranks(tmp_path):
     # korali's 512 reuse over minibatches of 256)
     assert verdict["n_updates"] == [80, 80] and len(set(verdict["digests"])) == 1
     assert [len(w) for w in verdict["wall_time"]] == [2, 2]
+
+
+# ------------------------------------------------------------ CUDA graphs
+
+# One gloo rank that runs the mesh's generations of both modes directly, then
+# graphed through tests/graph_standins.py with the capture decision forced on
+# (on the card only NCCL ranks capture); writes what it found to
+# <out>.<rank>.json.
+GRAPH_WORKER = r'''
+import json, sys
+import torch
+import torch.distributed as dist
+torch.set_num_threads(1)
+spec = json.loads(sys.argv[1])
+sys.path.insert(0, spec["tests"])
+import graph_standins as standins
+from marlpde_tpu_torch.envs import registry
+from marlpde_tpu_torch.parallel import mesh as pmesh
+from marlpde_tpu_torch.train import trainer
+from marlpde_tpu_torch.utils import checkpoint as ckpt
+from marlpde_tpu_torch.utils import graphs
+
+mesh = pmesh.make_mesh("cpu")
+env = registry.make_env("burger", device="cpu", **spec["small"])
+direct_graph, direct_enabled, direct_captures = graphs.new_graph, graphs.enabled, pmesh.Mesh.captures
+real_capture, captured = graphs.capture, []
+
+
+def counted_capture(name, fn, *a, **kw):
+    captured.append(name + (" (test)" if getattr(fn, "deterministic", False) else ""))
+    return real_capture(name, fn, *a, **kw)
+
+
+def run(mode, graphed):
+    graphs.new_graph = standins.Replayed if graphed else direct_graph
+    graphs.enabled = (lambda device: True) if graphed else direct_enabled
+    pmesh.Mesh.captures = property(lambda self: True) if graphed else direct_captures
+    cfg = trainer.default_rl_config(env, width=8, minibatch_mode=mode, mini_batch_size=8,
+                                    mini_batch_episodes=1, replay_start_experiences=10,
+                                    replay_max_experiences=40, replay_episode_capacity=8)
+    ts, rep, hist = pmesh.run_generations(env, cfg, mesh, envs_per_device=2, updates_per_gen=3,
+                                          n_generations=3, seed=4, testing_frequency=2,
+                                          testing_episodes=2)
+    learner = graphs.tensors((list(ckpt.dcp_state(ts).values()), ts.obs_stats, ts.rew_stats))
+    kept = sum(any(o is mesh for o in objs) for objs, _ in graphs._CACHE.values())
+    return learner, graphs.tensors(rep), hist, int(ts.n_updates), kept
+
+
+graphs.capture = counted_capture
+out = {}
+for mode in ("experience", "episode"):
+    (a, ra, ha, na, _), (b, rb, hb, nb, kept) = run(mode, False), run(mode, True)
+    out[mode] = dict(tensors=len(a + ra), equal=sum(torch.equal(x.nan_to_num(), y.nan_to_num())
+                                                    for x, y in zip(a + ra, b + rb)),
+                     returns=[ha["mean_return"], hb["mean_return"], ha["test_return"],
+                              hb["test_return"]],
+                     n_updates=[na, nb], captures=sorted(captured), kept=kept,
+                     digest=[float(x.double().sum()) for x in b])
+    captured.clear()
+with open(f"{spec['out']}.{mesh.rank}.json", "w") as f:
+    json.dump(out, f)
+dist.destroy_process_group()
+'''
+
+
+def test_mesh_graphs_give_the_direct_bits_on_two_ranks(tmp_path):
+    """Two gloo ranks, both modes, 3 generations with updates from the first
+    and a test collection: the graphed run (collections and updates, the
+    updates with their all_reduces, through the stand-ins) ends with the
+    direct run's train state, normalizers, replay shard and returns, bit for
+    bit; each rank captured the training macro-step, the test macro-step and
+    the update once in the run, and kept no graph of the group's collectives
+    after it (NCCL cannot destroy a communicator such a graph holds); the
+    ranks end equal."""
+    spec = dict(small=SMALL, tests=os.path.join(ROOT, "tests"), out=str(tmp_path / "out"))
+    rcs, outs = dryrun.launch(2, [json.dumps(spec)], code=GRAPH_WORKER, timeout=300)
+    assert rcs == [0, 0], "\n".join(outs)
+    res = [json.load(open(tmp_path / f"out.{r}.json")) for r in range(2)]
+    for mode, update in (("experience", "experience-mode update"),
+                         ("episode", "episode-mode update")):
+        for r in res:
+            got = r[mode]
+            assert got["equal"] == got["tensors"] > 20, (mode, got)
+            ret, ret_g, test, test_g = got["returns"]
+            assert ret == ret_g and test == test_g and len(test) == 1, (mode, got["returns"])
+            assert got["n_updates"] == [9, 9], (mode, got["n_updates"])
+            assert got["kept"] == 0        # the run's update graphs end with it
+            assert got["captures"] == sorted(["burger-marl macro-step",
+                                              "burger-marl macro-step (test)",
+                                              update]), (mode, got["captures"])
+        assert res[0][mode]["digest"] == res[1][mode]["digest"], mode
+
+
+def test_cli_mesh_captures_the_macro_step_once_a_run(tmp_path, monkeypatch, capsys):
+    """run.main(... --mesh) at a world of 1 over 4 generations, graphed
+    through the stand-ins: the rank keeps one device generator, so the
+    training macro-step is captured once in the run (it was once a
+    generation while each generation made a new generator), and the test
+    collection once; the gloo rank's updates stay eager, no update captured."""
+    monkeypatch.chdir(tmp_path)
+    standins.use(monkeypatch, standins.Replayed)
+    captured, real = [], graphs.capture
+
+    def counted(name, fn, *a, **kw):
+        captured.append((name, getattr(fn, "deterministic", None)))
+        return real(name, fn, *a, **kw)
+
+    monkeypatch.setattr(graphs, "capture", counted)
+    _, _, hist = trun.main(TINY[:-3] + ["--NE", "160", "--rstart", "10", "--testfreq", "2",
+                                        "--testepisodes", "2", "--mesh"], device="cpu")
+    assert hist["gen"] == [1, 2, 3, 4] and len(hist["test_return"]) == 2
+    assert sorted(captured, key=str) == [("burger macro-step", False),
+                                         ("burger macro-step", True)]
+    assert "backend gloo" in capsys.readouterr().out
+
+
+def test_the_rank_reseeds_one_device_generator(monkeypatch):
+    """run_generations keeps the rank's device generator for the run and
+    reseeds it each generation from the host stream, unchanged: at every
+    collection it draws what a fresh generator of that seed draws."""
+    env = tregistry.make_env("diffusion-simple", device="cpu", **DIFFUSION)
+    cfg = ttrainer.default_rl_config(env, width=8, replay_start_experiences=10**6)
+    seen, real = [], pmesh.collect_episodes
+
+    def recorded(env, rl_cfg, ts, generator, *a, **kw):
+        seen.append((generator, generator.get_state()))
+        return real(env, rl_cfg, ts, generator, *a, **kw)
+
+    monkeypatch.setattr(pmesh, "collect_episodes", recorded)
+    mesh = pmesh.make_mesh("cpu")
+    try:
+        pmesh.run_generations(env, cfg, mesh, envs_per_device=2, updates_per_gen=1,
+                              n_generations=3, seed=11)
+    finally:
+        dist.destroy_process_group()
+    host = torch.Generator().manual_seed(11)
+    pmesh._seeds(host, 1)                       # the initial weights' seed
+    assert len(seen) == 3 and len({id(g) for g, _ in seen}) == 1
+    for _, state in seen:
+        fresh = torch.Generator().manual_seed(pmesh._seeds(host, 1)[0])
+        reseeded = torch.Generator()
+        reseeded.set_state(state)
+        assert torch.equal(state, fresh.get_state())
+        assert torch.equal(torch.rand(8, generator=reseeded), torch.rand(8, generator=fresh))
 
 
 # ------------------------------------------------------ checkpoint, dry run
