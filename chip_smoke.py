@@ -23,17 +23,21 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    training (1024 episodes of 500 macro-steps, 32 agents, 200 VRACER updates
    each) through registry.make_env / trainer.train, with launch counts;
 5. [breakdown] one more such generation's phases, and [small] a small
-   deterministic collection on the card against the same on the CPU;
+   deterministic collection on the card against the same on the CPU; [f2]
+   the policy's log_ndtr (fault F2's op) on the card against the CPU over
+   |z| from 1e-3 to 1e7, finite, and 0 for a zero cotangent;
 5a. [graphs] the CUDA graphs of the training path (utils/graphs.py) against
    the step functions called directly: for run-918 (experience mode, both
    kernels), the fused flagship (episode mode, 1024 envs), run-926 KS and
-   run-927 burger-fd, two generations of GRAPH_UPDATES updates each way
-   from one state, held bit for bit (trajectories, final states,
-   parameters, Adam's state, beta, the counter, the generator, every replay
-   buffer), with seconds per collection and ms per update both ways (CUDA
-   events), the kernels' launches counted per replay, and under
-   torch.profiler the host's launches per macro-step and per update and the
-   device's busy share under graphs; then a graphed resume through the CLI
+   run-927 burger-fd, two generations of GRAPH_UPDATES updates on each of
+   three paths from one state (eager, one update a graph, 50 updates a
+   graph as the trainer runs them), each graphed path held bit for bit
+   against eager (trajectories, final states, parameters, Adam's state,
+   beta, the counter, the generator, every replay buffer), with seconds per
+   collection and ms per update on each path (CUDA events), the kernels'
+   launches counted per replay, and under torch.profiler the host's
+   launches per macro-step and per update and the device's busy share of
+   the collection and of the updates on both graphed paths; then a graphed resume through the CLI
    (run-918 flags: two generations straight against one, a checkpoint with
    the replay, --resume and one more), held bit for bit;
 6. [cli] the run-918 flagship through ``python -m marlpde_tpu_torch.run``'s
@@ -92,10 +96,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    a-posteriori checks), a transfer step with frozen layers, and the card's
    DNS against the CPU's from the same draws;
 20. [mesh] the run-918 flags with --mesh through the CLI at a world of 1 on
-   NCCL (RUN_MESH: 3 generations, updates from the second, each a replay of
-   one update captured with its all_reduces, then --resume for a fourth);
+   NCCL (RUN_MESH: 3 generations, updates from the second, replays of 50
+   updates captured with their all_reduces, then --resume for a fourth);
    the same 3 generations under graphs.eager(), held bit for bit against the
-   graphed ones; the captures of each run (one macro-step and one update);
+   graphed ones; the captures of each run (one macro-step and one chunk of
+   updates);
    seconds per generation and ms per update graphed and eager (CUDA events
    around the replays) beside [cli-breakdown]'s, and the all_reduces per
    update, counted per replay as the kernels' launches are;
@@ -172,7 +177,7 @@ RUN_926 = ("ks --N 16 --NA 16 --ndns 16 --sigma-max 5 --iex 0.01 --numenvs 16 --
 BREAKDOWN_UPDATES = 500
 # [graphs]: the updates of each of its generations, and of its profiled window
 GRAPH_UPDATES = 100
-PROFILED_UPDATES = 20
+PROFILED_UPDATES = 100
 KS_AGREE_TOL = 1e-4  # relative to each tensor's max |value|: float32, cuFFT against pocketfft
 # the run-vracer-burger-fd.py config (bench.py:79-84): N_dns 1024, N = NA = 256,
 # turbulence IC, MSE reward, width 32, iex 0.005, at the CLI's default mbsize.
@@ -279,6 +284,12 @@ APG_AGREE = dict(N_dns=512, grid_size=32, num_actions=32, dt=1e-3, T=0.2, episod
                  dforce=True)
 AGREE_FACTOR = 10.0
 AGREE_F64_TOL = 1e-8
+# [f2]: the arguments of log_ndtr at the first non-finite updates of run 926
+# (seed 7, generation 103) and run 918 (seed 42, generation 159) on the card,
+# and the relative tolerance of log_ndtr on the card against the CPU (float32,
+# a few ulps of erf, erfc, log and exp)
+F2_ARGS = (-47171.656, -94777.72)
+F2_TOL = 1e-5
 # [cmaes]: run-cmaes-burger.py's config (N_dns 512, N 32, population 8, 500
 # macro-steps of 10 ABCN sub-steps) through the CLI, cut to 3 generations;
 # the card's objective against the CPU's at CMAES_CS, within AGREE_FACTOR
@@ -626,12 +637,56 @@ def phase_breakdown(env, ts, rep, rl_cfg):
     (ts, rep), t_observe = timed(lambda: (vracer.observe_episodes(rl_cfg, ts, traj),
                                           replay.add_episodes(rep, traj)))
 
-    # the update graph for this generator is captured untimed, by one update
-    trainer.run_updates(rl_cfg, ts, rep, g, 1)
+    # the graph of UPDATE_CHUNK updates for this generator is captured
+    # untimed, by one chunk
+    trainer.run_updates(rl_cfg, ts, rep, g, trainer.UPDATE_CHUNK)
     _, t_update = timed(lambda: trainer.run_updates(rl_cfg, ts, rep, g, 200))
     print(f"[breakdown] collect {t_collect:.3f} s (the first with this generator: its "
           f"capture included), normalizers + replay insert {t_observe:.3f} s, 200 updates "
           f"{t_update:.3f} s (graph replays)")
+
+
+def phase_f2(dev):
+    """Fault F2's op on the card against the CPU: the policy's log-probability
+    takes both tails of the clipped normal through ``distributions.log_ndtr``
+    (JAX's value and derivative rule).  Over a float32 sweep of |z| from 1e-3
+    to 1e7 (the card's two first non-finite arguments included), its value on
+    the card agrees with the CPU's within F2_TOL relative, its derivative too
+    where |z| <= 10, and a zero cotangent (an unselected tail) gives exactly
+    0 on the card everywhere.  torch.special.log_ndtr's zero-cotangent
+    backward, which F2 went through, is counted beside it."""
+    import numpy as np
+    import torch
+    from marlpde_tpu_torch.rl import distributions as D
+
+    z = np.concatenate([-np.logspace(-3, 7, 20001), np.logspace(-3, 7, 20001),
+                        F2_ARGS]).astype(np.float32)
+    out = {}
+    for where in ("cpu", dev):
+        grads = []
+        for fn, cot in ((D.log_ndtr, 1.0), (D.log_ndtr, 0.0), (torch.special.log_ndtr, 0.0)):
+            x = torch.tensor(z, device=where, requires_grad=True)
+            y = fn(x)
+            y.backward(torch.full_like(y, cot))
+            grads.append(x.grad.cpu().numpy())
+        out[where] = (y.detach().cpu().numpy(), *grads)
+    (yc, gc, _, _), (yd, gd, zero_d, torch_d) = out["cpu"], out[dev]
+    # values under 1e-12 (far in the upper tail) are held to 1e-17 absolute
+    val_rel = np.max(np.abs(yd - yc) / np.maximum(np.abs(yc), 1e-12))
+    mid = np.abs(z) <= 10
+    der_rel = np.max(np.abs(gd[mid] - gc[mid]) / np.maximum(np.abs(gc[mid]), 1e-30))
+    print(f"[f2] log_ndtr over {len(z)} float32 arguments, |z| 1e-3..1e7, on the card against "
+          f"the CPU: value max rel {val_rel:.3g}, derivative (|z| <= 10) max rel {der_rel:.3g} "
+          f"(tolerance {F2_TOL}); card: derivative finite at {np.isfinite(gd).sum()} of "
+          f"{len(z)}, a zero cotangent gives {np.count_nonzero(zero_d)} non-zero; "
+          f"torch.special.log_ndtr's zero-cotangent backward non-finite at "
+          f"{np.count_nonzero(~np.isfinite(torch_d))} (at the card's F2 arguments "
+          f"{F2_ARGS}: {torch_d[-len(F2_ARGS):].tolist()})", flush=True)
+    check(np.isfinite(yd).all() and np.isfinite(gd).all() and not np.count_nonzero(zero_d),
+          "f2: log_ndtr's value or derivative is not finite on the card, or a zero "
+          "cotangent gave a non-zero gradient")
+    check(val_rel <= F2_TOL and der_rel <= F2_TOL,
+          f"f2: log_ndtr on the card differs from the CPU: {val_rel}, {der_rel}")
 
 
 def phase_small_agreement(dev):
@@ -737,13 +792,31 @@ def _graphs_generation(env, rl_cfg, ts, rep, g, B, base, eager):
             events[2].elapsed_time(events[3]) / GRAPH_UPDATES, d(0), d(2))
 
 
+# [graphs]' paths: the steps called directly, the updates replayed one to a
+# graph, and UPDATE_CHUNK (50) to a graph, as the trainer runs them
+GRAPH_PATHS = (("eager", 1), ("graphs-1", 1), ("graphs-50", 50))
+
+
+@contextlib.contextmanager
+def _update_chunk(k):
+    """``trainer.run_updates`` with ``k`` updates a graph inside the block."""
+    from marlpde_tpu_torch.train import trainer
+    real = trainer.UPDATE_CHUNK
+    trainer.UPDATE_CHUNK = k
+    try:
+        yield
+    finally:
+        trainer.UPDATE_CHUNK = real
+
+
 def phase_graphs(env_flagship, workdir):
     """The training path's CUDA graphs against the step functions called
     directly, on the card: for run-918 (experience mode, both kernels), the
     fused flagship (episode mode, 1024 envs), run-926 KS and run-927
     burger-fd, two generations from one state (after an eager collection
-    and insert), each path on its own copy of the train state, replay and
-    generator.  Then a graphed resume through the CLI."""
+    and insert), each path of GRAPH_PATHS (eager, one update a graph, 50 a
+    graph) on its own copy of the train state, replay and generator.  Then
+    a graphed resume through the CLI."""
     import copy
     import torch
     from marlpde_tpu_torch import run
@@ -775,78 +848,99 @@ def phase_graphs(env_flagship, workdir):
             traj, _ = rollout.collect_episodes(env, rl_cfg, ts, g0, B, 0)
             ts, rep = trainer.insert_generation(rl_cfg, ts, rep, traj)
         runs = {}
-        for path in ("eager", "graphs"):
+        for path, chunk in GRAPH_PATHS:
             t, r = copy.deepcopy(ts), graphs.clone(rep)
             g = torch.Generator(device=dev)
             g.set_state(g0.get_state())
             gens = []
-            for k in (1, 2):
-                t, traj, final, col_s, upd_ms, col_n, upd_n = _graphs_generation(
-                    env, rl_cfg, t, r, g, B, k * B, eager=path == "eager")
-                gens.append((traj, final, col_s, upd_ms, col_n, upd_n))
+            with _update_chunk(chunk):
+                for k in (1, 2):
+                    t, traj, final, col_s, upd_ms, col_n, upd_n = _graphs_generation(
+                        env, rl_cfg, t, r, g, B, k * B, eager=path == "eager")
+                    gens.append((traj, final, col_s, upd_ms, col_n, upd_n))
             runs[path] = (t, r, g, gens)
-        (te, re_, ge, gens_e), (tg, rg, gg, gens_g) = runs["eager"], runs["graphs"]
-        pairs = []
-        for (tr_e, fin_e, *_), (tr_g, fin_g, *_) in zip(gens_e, gens_g):
-            pairs += [(f"traj.{k}", tr_e[k], tr_g[k]) for k in tr_e]
-            pairs += [(f"final.{i}", a, b) for i, (a, b) in enumerate(
-                zip(graphs.tensors(fin_e), graphs.tensors(fin_g)))]
-        pairs += [(f"param.{n}", p, q) for (n, p), q in zip(te.net.named_parameters(),
-                                                            tg.net.parameters())]
-        for i, (a, b) in enumerate(zip(list(te.opt.state.values()), list(tg.opt.state.values()))):
-            pairs += [(f"adam.{i}.{k}", a[k], b[k]) for k in a]
-        pairs += [("beta", te.beta, tg.beta), ("n_updates", te.n_updates, tg.n_updates),
-                  ("generator", ge.get_state(), gg.get_state())]
-        pairs += [(f"replay.{f.name}", getattr(re_, f.name), getattr(rg, f.name))
-                  for f in dataclasses.fields(rep) if isinstance(getattr(re_, f.name), torch.Tensor)]
-        pairs += [(f"stats.{i}", a, b) for i, (a, b) in enumerate(zip(
-            graphs.tensors((te.obs_stats, te.rew_stats)), graphs.tensors((tg.obs_stats, tg.rew_stats))))]
-        verdict = [(name, *_same(a, b)) for name, a, b in pairs]
-        differ = [(name, diff) for name, same, diff in verdict if not same]
-        (_, _, col_e, upd_e, coln_e, updn_e), (_, _, col_g, upd_g, coln_g, updn_g) = (
-            gens_e[1], gens_g[1])
+        te, re_, ge, gens_e = runs["eager"]
+        (_, _, col_e, upd_e, coln_e, updn_e) = gens_e[1]
         T = env.episode_length
-        print(f"[graphs] {label} ({smi}): 2 generations of {B} envs x {T} macro-steps and "
-              f"{GRAPH_UPDATES} {rl_cfg.minibatch_mode}-mode updates from one state, graphs "
-              f"against eager: {len(verdict) - len(differ)} of {len(verdict)} tensors bitwise "
-              f"equal (trajectories, final states, parameters, Adam moments and steps, beta, "
-              f"the counter, the generator, every replay buffer incl. sv, vtg, rho)"
-              + (f"; differ: {differ}" if differ else ""), flush=True)
+        upd_ms = {}
+        for path, chunk in GRAPH_PATHS[1:]:
+            tg, rg, gg, gens_g = runs[path]
+            pairs = []
+            for (tr_e, fin_e, *_), (tr_g, fin_g, *_) in zip(gens_e, gens_g):
+                pairs += [(f"traj.{k}", tr_e[k], tr_g[k]) for k in tr_e]
+                pairs += [(f"final.{i}", a, b) for i, (a, b) in enumerate(
+                    zip(graphs.tensors(fin_e), graphs.tensors(fin_g)))]
+            pairs += [(f"param.{n}", p, q) for (n, p), q in zip(te.net.named_parameters(),
+                                                                tg.net.parameters())]
+            for i, (a, b) in enumerate(zip(list(te.opt.state.values()),
+                                           list(tg.opt.state.values()))):
+                pairs += [(f"adam.{i}.{k}", a[k], b[k]) for k in a]
+            pairs += [("beta", te.beta, tg.beta), ("n_updates", te.n_updates, tg.n_updates),
+                      ("generator", ge.get_state(), gg.get_state())]
+            pairs += [(f"replay.{f.name}", getattr(re_, f.name), getattr(rg, f.name))
+                      for f in dataclasses.fields(rep)
+                      if isinstance(getattr(re_, f.name), torch.Tensor)]
+            pairs += [(f"stats.{i}", a, b) for i, (a, b) in enumerate(zip(
+                graphs.tensors((te.obs_stats, te.rew_stats)),
+                graphs.tensors((tg.obs_stats, tg.rew_stats))))]
+            verdict = [(name, *_same(a, b)) for name, a, b in pairs]
+            differ = [(name, diff) for name, same, diff in verdict if not same]
+            (_, _, col_g, upd_g, coln_g, updn_g) = gens_g[1]
+            upd_ms[path] = upd_g
+            print(f"[graphs] {label} ({smi}): 2 generations of {B} envs x {T} macro-steps and "
+                  f"{GRAPH_UPDATES} {rl_cfg.minibatch_mode}-mode updates from one state, "
+                  f"{path} ({chunk} update{'s' * (chunk > 1)} a graph) against eager: "
+                  f"{len(verdict) - len(differ)} of {len(verdict)} tensors bitwise equal "
+                  f"(trajectories, final states, parameters, Adam moments and steps, beta, "
+                  f"the counter, the generator, every replay buffer incl. sv, vtg, rho)"
+                  + (f"; differ: {differ}" if differ else ""), flush=True)
+            check(coln_g == coln_e and updn_g == updn_e,
+                  f"graphs {label} {path}: launches counted per replay {coln_g} {updn_g} "
+                  f"against eager {coln_e} {updn_e}")
+            if differ:
+                failures.append((label, path, differ))
+        col_g = runs["graphs-50"][3][1][2]
         print(f"[graphs] {label} generation 2: collection {col_g:.4f} s graphed, {col_e:.4f} s "
-              f"eager ({col_e / col_g:.2f}x); {upd_g:.4f} ms per update graphed, {upd_e:.4f} ms "
-              f"eager ({upd_e / upd_g:.2f}x) (CUDA events); kernel launches abcn/mlp: "
-              f"collection {coln_g} graphed, {coln_e} eager; updates {updn_g} graphed, "
-              f"{updn_e} eager", flush=True)
-        check(coln_g == coln_e and updn_g == updn_e,
-              f"graphs {label}: launches counted per replay {coln_g} {updn_g} against eager "
-              f"{coln_e} {updn_e}")
-        if differ:
-            failures.append((label, differ))
+              f"eager ({col_e / col_g:.2f}x); ms per update {upd_ms['graphs-50']:.4f} with 50 "
+              f"updates a graph, {upd_ms['graphs-1']:.4f} with one a graph, {upd_e:.4f} eager "
+              f"({upd_ms['graphs-1'] / upd_ms['graphs-50']:.2f}x, "
+              f"{upd_e / upd_ms['graphs-50']:.2f}x) (CUDA events); kernel launches "
+              f"abcn/mlp: collection {coln_e}, updates {updn_e} on every path", flush=True)
         # host launches and device busy share under graphs: one more collection
-        # and PROFILED_UPDATES updates; the eager update's launches for comparison
-        t, r, g, _ = runs["graphs"]
-        wall_c, busy_c, calls_c, _, over_c = _profiled(
-            lambda: rollout.collect_episodes(env, rl_cfg, t, g, B, 3 * B))
+        # and PROFILED_UPDATES updates on each graphed path; the eager update's
+        # launches for comparison
         n = PROFILED_UPDATES
-        wall_u, busy_u, calls_u, _, over_u = _profiled(
-            lambda: trainer.run_updates(rl_cfg, t, r, g, n))
+        t, r, g, _ = runs["graphs-50"]
+        wall_c, busy_c, calls_c, _, over = _profiled(
+            lambda: rollout.collect_episodes(env, rl_cfg, t, g, B, 3 * B))
+        profiled = {}
+        for path, chunk in GRAPH_PATHS[1:]:
+            t, r, g, _ = runs[path]
+            with _update_chunk(chunk):
+                profiled[path] = _profiled(lambda: trainer.run_updates(rl_cfg, t, r, g, n))
+            over += profiled[path][4]
         t, r, g, _ = runs["eager"]
         with graphs.eager():
             _, _, calls_e, launch_us, over_e = _profiled(
                 lambda: trainer.run_updates(rl_cfg, t, r, g, n))
         host_us = 1e3 * upd_e / (sum(calls_e.values()) / n)
         per = lambda calls, k: {name: round(v / k, 2) for name, v in sorted(calls.items())}
+        (wall_50, busy_50, calls_50, _, _), (wall_1, busy_1, calls_1, _, _) = (
+            profiled["graphs-50"], profiled["graphs-1"])
         print(f"[graphs] {label} under torch.profiler: host launches per macro-step graphed "
-              f"{per(calls_c, T)}, per update graphed {per(calls_u, n)}, eager {per(calls_e, n)}; "
-              f"device busy under graphs {100 * busy_c / wall_c:.1f}% of the collection "
-              f"({wall_c:.4f} s), {100 * busy_u / wall_u:.1f}% of {n} updates "
-              f"({1e3 * wall_u / n:.4f} ms each); eager, {host_us:.2f} µs of an update's "
+              f"{per(calls_c, T)}, per update with 50 updates a graph {per(calls_50, n)}, one "
+              f"a graph {per(calls_1, n)}, eager {per(calls_e, n)}; device busy under graphs "
+              f"{100 * busy_c / wall_c:.1f}% of the collection ({wall_c:.4f} s), "
+              f"{100 * busy_50 / wall_50:.1f}% of {n} updates 50 a graph "
+              f"({1e3 * wall_50 / n:.4f} ms each), {100 * busy_1 / wall_1:.1f}% one a graph "
+              f"({1e3 * wall_1 / n:.4f} ms each); eager, {host_us:.2f} µs of an update's "
               f"time per host launch, {launch_us:.2f} µs of it in the cudaLaunchKernel call "
               f"itself (the rest Python and PyTorch's dispatch); the profiler's own "
-              f"{over_c + over_u + over_e:.1f} s", flush=True)
+              f"{over + over_e:.1f} s", flush=True)
         graph_launches = lambda calls: sum(v for k, v in calls.items() if "GraphLaunch" in k)
-        check(graph_launches(calls_c) == T and graph_launches(calls_u) == n,
-              f"graphs {label}: graph launches {calls_c} {calls_u}")
+        check(graph_launches(calls_c) == T and graph_launches(calls_1) == n
+              and graph_launches(calls_50) == -(-n // 50),
+              f"graphs {label}: graph launches {calls_c} {calls_1} {calls_50}")
         del runs
         print(f"[graphs] {label}: {time.perf_counter() - t_config:.1f} s", flush=True)
     _graphs_resume(workdir)
@@ -1022,13 +1116,13 @@ def phase_cli_breakdown(tag, argv, ts, rep, what, gen_updates, gen_s=None):
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
-    # the collection's and the update's graphs for this env and generator are
-    # captured untimed, by one collection and one update
+    # the collection's and the updates' graphs for this env and generator are
+    # captured untimed, by one collection and one chunk of updates
     rollout.collect_episodes(env, rl_cfg, ts, g, tc.num_envs, 6 * tc.num_envs)
     (traj, _), t_collect = timed(lambda: rollout.collect_episodes(
         env, rl_cfg, ts, g, tc.num_envs, 7 * tc.num_envs))
     (ts, rep), t_insert = timed(lambda: trainer.insert_generation(rl_cfg, ts, rep, traj))
-    trainer.run_updates(rl_cfg, ts, rep, g, 1)
+    trainer.run_updates(rl_cfg, ts, rep, g, trainer.UPDATE_CHUNK)
     _, t_update = timed(lambda: trainer.run_updates(rl_cfg, ts, rep, g, BREAKDOWN_UPDATES))
     per_update = t_update / BREAKDOWN_UPDATES
     share = t_collect / (t_collect + t_insert + gen_updates * per_update)
@@ -2174,8 +2268,8 @@ def _all_reduces():
 
 def phase_mesh(cli_ms_per_update):
     """The run-918 flags with --mesh at a world of 1 through the CLI: the NCCL
-    group, 3 generations (updates from the second, replays of one update
-    captured with its all_reduces) and --resume for a fourth; the same 3
+    group, 3 generations (updates from the second, replays of 50 updates
+    captured with their all_reduces) and --resume for a fourth; the same 3
     generations under ``graphs.eager()``, held bit for bit against the
     graphed ones.  Prints seconds per generation, ms per update graphed and
     eager beside [cli-breakdown]'s, the all_reduces per update (counted per
@@ -2247,8 +2341,10 @@ def phase_mesh(cli_ms_per_update):
                                                                  2 * MESH_UPDATES],
           f"mesh: generations {hist['gen']}, updates {[m[1] for m in marks]}")
     check(hist["experiences"] == [g * 10 * 500 for g in (1, 2, 3)], f"mesh {hist['experiences']}")
-    check(captures == {"burger-marl macro-step": 1, "experience-mode update": 1},
-          f"mesh: captures in the run {dict(captures)} (one macro-step and one update a run)")
+    check(captures == {"burger-marl macro-step": 1,
+                       f"{trainer.UPDATE_CHUNK} experience-mode updates": 1},
+          f"mesh: captures in the run {dict(captures)} (one macro-step and one chunk of "
+          f"updates a run)")
     per_gen = [marks[0][0]] + [b[0] - a[0] for a, b in zip(marks, marks[1:])]
     per_update = (per_gen[1] - per_gen[0]) / MESH_UPDATES
     check(per_update == int(per_update) >= 1 and per_gen[2] == per_gen[1],
@@ -2420,6 +2516,8 @@ def main() -> int:
     mark("breakdown")
     phase_small_agreement(dev)
     mark("small")
+    phase_f2(dev)
+    mark("f2")
     del ts, rep
     here = os.getcwd()
     with tempfile.TemporaryDirectory() as workdir:

@@ -29,10 +29,11 @@ and minibatches.  A checkpoint's meta holds the host generator's state.
 On the card the JAX package runs a generation as one program
 (``jax.jit(shard_map(...))``, marlpde_tpu/parallel/mesh.py:215); the port
 replays CUDA graphs (utils/graphs.py).  Every rank's collection replays its
-macro-step graph.  On NCCL each rank's updates replay one captured update,
-its all_reduces inside the graph (``Mesh.captures``); gloo ranks run their
-updates eagerly.  The rank keeps its device generator for the whole run, so
-the graphs that registered it are captured once a run, not once a generation.
+macro-step graph.  On NCCL each rank's updates replay graphs of 50 captured
+updates (``trainer.run_updates``), their all_reduces inside the graph
+(``Mesh.captures``); gloo ranks run their updates eagerly.  The rank keeps
+its device generator for the whole run, so the graphs that registered it
+are captured once a run, not once a generation.
 """
 
 from __future__ import annotations

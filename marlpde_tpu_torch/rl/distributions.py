@@ -25,12 +25,58 @@ def sample(generator, mu, sigma, lb, ub):
     return sample_from_noise(noise, mu, sigma, lb, ub)
 
 
+# below this argument jax.scipy.special.log_ndtr takes its asymptotic series,
+# per dtype
+_LOG_NDTR_LOWER = {torch.float32: -10.0, torch.float64: -20.0}
+
+
+def _log_ndtr_lower(x):
+    """log ndtr(x) for x << -1 by the asymptotic series of order 3, in the
+    operations of jax.scipy.special's ``_log_ndtr_lower``."""
+    x_2 = x * x
+    x_4 = x_2 * x_2
+    log_scale = -0.5 * x_2 - torch.log(-x) - LOG_SQRT_2PI
+    odd_sum = 1.0 / x_2 + 15.0 / (x_4 * x_2)
+    even_sum = 3.0 / x_4
+    return log_scale + torch.log(1.0 + even_sum - odd_sum)
+
+
+class _LogNdtr(torch.autograd.Function):
+    """log Phi(x) with the derivative jax.scipy.special.log_ndtr defines,
+    exp(norm.logpdf(x) - log_ndtr(x)), where its log_ndtr below the lower
+    segment is the asymptotic series (``_log_ndtr_lower``), whose leading
+    -x^2/2 rounds as norm.logpdf's does, so the difference stays small and
+    the derivative finite.  ``torch.special.log_ndtr``'s own backward,
+    exp(-(log_ndtr(x) + x^2/2)), takes the difference of two numbers of size
+    x^2/2 rounded apart: beyond |x| ~ 3e4 in float32 it returns 0 or inf, and
+    ``log_prob``'s unselected tail then multiplies its zero cotangent by inf,
+    which is NaN in the gradient (fault F2).  The value is
+    torch.special.log_ndtr's."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ans = torch.special.log_ndtr(x)
+        ctx.save_for_backward(x, ans)
+        return ans
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, ans = ctx.saved_tensors
+        lower = _LOG_NDTR_LOWER[x.dtype]
+        ans = torch.where(x > lower, ans, _log_ndtr_lower(torch.clamp(x, max=lower)))
+        return grad * torch.exp((-0.5 * (x * x) - LOG_SQRT_2PI) - ans)
+
+
+def log_ndtr(x):
+    return _LogNdtr.apply(x)
+
+
 def log_prob(a, mu, sigma, lb, ub):
     """Per-dimension log density/mass of the clipped normal."""
     z = (a - mu) / sigma
     log_pdf = -0.5 * z * z - torch.log(sigma) - LOG_SQRT_2PI
-    log_cdf_lo = torch.special.log_ndtr((lb - mu) / sigma)
-    log_sf_hi = torch.special.log_ndtr(-((ub - mu) / sigma))
+    log_cdf_lo = log_ndtr((lb - mu) / sigma)
+    log_sf_hi = log_ndtr(-((ub - mu) / sigma))
     return torch.where(a <= lb, log_cdf_lo, torch.where(a >= ub, log_sf_hi, log_pdf))
 
 

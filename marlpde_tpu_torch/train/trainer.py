@@ -15,11 +15,12 @@ padded experience accounting, or korali's real-experience ledger with
 ``count_real_experiences``, and adds testing, checkpoints and the decay
 diagnostics.  ``build_fused_generation`` keeps the JAX name for one such
 generation at the static count.  On the card a generation is a handful of
-device programs, as in the JAX package: the collection's macro-step and the
-update are CUDA graphs (utils/graphs.py), replayed T and n times, around the
-eager reset, normalizer update and replay insert.  One ``torch.Generator``
-on the env's device draws the initial weights, the reset offsets, the action
-noise and every minibatch; the graphs advance it as the eager steps would.
+device programs, as in the JAX package: the collection's macro-step and
+UPDATE_CHUNK updates are CUDA graphs (utils/graphs.py), replayed T and
+n / UPDATE_CHUNK times, around the eager reset, normalizer update and
+replay insert.  One ``torch.Generator`` on the env's device draws the
+initial weights, the reset offsets, the action noise and every minibatch;
+the graphs advance it as the eager steps would.
 Counters that decide control flow (replay fill, update counts, the ledger)
 are host ints; the update counter and the replay's bounds also live on the
 device, where the graphs read them.
@@ -42,6 +43,10 @@ from marlpde_tpu_torch.rl import replay_flat, running_stats, vracer
 from marlpde_tpu_torch.utils import checkpoint as ckpt
 from marlpde_tpu_torch.utils import graphs
 from marlpde_tpu_torch.utils.profiling import Throughput
+
+# updates in one graph of ``run_updates``: the JAX package's UPDATE_CHUNK
+# (marlpde_tpu/train/trainer.py:32), its updates in one compiled scan
+UPDATE_CHUNK = 50
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,25 +146,33 @@ def _update(rl_cfg, ts, rep, generator, group=None, mini_batch=None):
     return vracer.update(rl_cfg, ts, batch, group=group)[1]
 
 
-def _update_key(rl_cfg, ts, rep, mini_batch):
-    return ("update", rl_cfg, mini_batch, graphs.pointers(
+def _updates(rl_cfg, ts, rep, generator, group, mini_batch, k: int):
+    """``k`` sequential updates in place; returns the last one's metrics."""
+    for _ in range(k):
+        metrics = _update(rl_cfg, ts, rep, generator, group, mini_batch)
+    return metrics
+
+
+def _update_key(rl_cfg, ts, rep, mini_batch, k):
+    return ("update", rl_cfg, mini_batch, k, graphs.pointers(
         (list(ts.net.parameters()), list(ts.opt.state.values()), ts.beta, ts.n_updates,
          rep, rep.counters)))
 
 
-def _update_graph(rl_cfg, ts, rep, generator, group, mini_batch):
-    """(the update captured for this train state, replay, generator and
-    group, the warm-up's metrics or None).  The graph reads the normalizers
+def _update_graph(rl_cfg, ts, rep, generator, group, mini_batch, k):
+    """(``k`` sequential updates captured as one graph for this train state,
+    replay, generator and group; the warm-up's metrics, or None).  The
+    warm-up runs the ``k`` updates for real.  The graph reads the normalizers
     from its own buffers, which each call copies into; everything else it
     reads and writes in place (the module, Adam's state, beta, the counter,
     the replay).
 
-    Under ``group`` the capture holds the update's all_reduces.  A rank that
+    Under ``group`` the capture holds the updates' all_reduces.  A rank that
     replays while another captures would wait for collectives the capture
     only records, so the ranks agree first: every rank captures when any
     rank's key missed."""
     objects = (ts.net, rep, generator, group)
-    hit = graphs.cached(_update_key(rl_cfg, ts, rep, mini_batch), objects)
+    hit = graphs.cached(_update_key(rl_cfg, ts, rep, mini_batch, k), objects)
     if group is not None and not all(group.all_gather_object(hit is not None)):
         hit = None
     if hit is not None:
@@ -169,28 +182,37 @@ def _update_graph(rl_cfg, ts, rep, generator, group, mini_batch):
     static_ts = dataclasses.replace(ts, obs_stats=graphs.clone(ts.obs_stats),
                                     rew_stats=graphs.clone(ts.rew_stats))
     first, graph = graphs.capture(
-        f"{rl_cfg.minibatch_mode}-mode update",
-        lambda: _update(rl_cfg, static_ts, rep, generator, group, mini_batch),
+        f"{k} {rl_cfg.minibatch_mode}-mode updates",
+        lambda: _updates(rl_cfg, static_ts, rep, generator, group, mini_batch, k),
         ts.beta.device, generators=[generator])
     # under the key the next call computes: the warm-up made Adam's state
-    graphs.store(_update_key(rl_cfg, ts, rep, mini_batch), objects, (static_ts, graph))
+    graphs.store(_update_key(rl_cfg, ts, rep, mini_batch, k), objects, (static_ts, graph))
     return graph, first
 
 
 def run_updates(rl_cfg, ts, rep, generator, n: int, group=None, mini_batch=None):
     """``n`` sequential updates from ``generator``; returns (ts, rep, the last
     update's metrics, {} when n is 0).  On the card they are replays of one
-    captured update (the first call for a train state also runs one update
-    for real, the capture's warm-up); elsewhere direct calls.  Under
+    graph of UPDATE_CHUNK updates, ``n // UPDATE_CHUNK`` times, then of one
+    graph of the remaining ``n % UPDATE_CHUNK`` (the JAX package's update
+    scans, marlpde_tpu/train/trainer.py:233-257); the first call of a chunk
+    length for a train state runs its updates for real (the capture's
+    warm-up), and they count toward ``n``.  Elsewhere direct calls.  Under
     ``group`` (the rank's ``Mesh``, with ``mini_batch`` its experience-mode
     slice) the updates average over the ranks, and they are replays only
-    where the group's collectives can be captured (``Mesh.captures``)."""
+    where the group's collectives can be captured (``Mesh.captures``): on
+    NCCL a chunk holds its updates' all_reduces."""
     metrics = {}
     if n and graphs.enabled(ts.beta.device) and (group is None or group.captures):
-        graph, metrics = _update_graph(rl_cfg, ts, rep, generator, group, mini_batch)
-        for _ in range(n - (metrics is not None)):
-            metrics = graph.replay()
-        return ts, rep, {k: v.clone() for k, v in metrics.items()}
+        full, rem = divmod(n, UPDATE_CHUNK)
+        for k, times in ((UPDATE_CHUNK, full), (rem, 1)):
+            if not (k and times):
+                continue
+            graph, first = _update_graph(rl_cfg, ts, rep, generator, group, mini_batch, k)
+            metrics = first if first is not None else metrics
+            for _ in range(times - (first is not None)):
+                metrics = graph.replay()
+        return ts, rep, {name: v.clone() for name, v in metrics.items()}
     for _ in range(n):
         metrics = _update(rl_cfg, ts, rep, generator, group, mini_batch)
     return ts, rep, metrics

@@ -177,8 +177,9 @@ def capture(name: str, fn, device, generators=()):
 
 # the graphs kept, least recently used first: (key, ids, settings) -> (objects, value)
 _CACHE: "collections.OrderedDict" = collections.OrderedDict()
-# graphs kept at once: a generation uses two or three (the training and test
-# collections, the update); each holds its buffers and private memory pool
+# graphs kept at once: a generation uses two to four (the training and test
+# collections, 50 updates and a remainder); each holds its buffers and
+# private memory pool
 MAX_GRAPHS = 8
 
 

@@ -10,24 +10,30 @@
 # once every episode blows up in its first macro-step, korali's accounting
 # adds 10 live steps a generation and the run would not reach --NE in days.
 # --test then reads the last checkpoint (written every 25 generations).
+# PKG=marlpde_tpu runs the same stages on the JAX package (JAX_PLATFORMS=cpu
+# for the CPU; CAP=0 lifts the cut, which is sized for the card).
 #   bash scripts/torch_acceptance.sh <out> 918|926 [seed ...]     (default seeds: 42 7)
+#   env PKG=marlpde_tpu JAX_PLATFORMS=cpu CAP=0 bash scripts/torch_acceptance.sh <out> 926 7
 set -o pipefail
 OUT=${1:?usage: $0 <out dir> 918|926 [seed ...]}
 RUN=${2:?usage: $0 <out dir> 918|926 [seed ...]}
 shift 2
 SEEDS=${*:-42 7}
+PKG=${PKG:-marlpde_tpu_torch}
 mkdir -p "$OUT"
-nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
-python -c 'import sys, torch; print(sys.version.split()[0], torch.__version__, torch.version.cuda)'
-python -c 'from marlpde_tpu_torch.kernels import build; build.build_all(("abcn", "mlp"))'
-P="python -m marlpde_tpu_torch.run"
+if [ "$PKG" = marlpde_tpu_torch ]; then
+    nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
+    python -c 'import sys, torch; print(sys.version.split()[0], torch.__version__, torch.version.cuda)'
+    python -c 'from marlpde_tpu_torch.kernels import build; build.build_all(("abcn", "mlp"))'
+fi
+P="python -m $PKG.run"
 case $RUN in
     918) FLAGS="burger-marl --nagents 32 --specreward --dforce --ic turbulence --width 128 --iex 0.1 --rscale cumulative --trust forward"
          TRAIN="--NE 1000000 --numenvs 10 --mbsize 8 --maxupd 2500 --testfreq 10 --testepisodes 8 --diag"
-         TEST="--testepisodes 8" RES=_result_burger-marl CAP=660 ;;
+         TEST="--testepisodes 8" RES=_result_burger-marl CAP=${CAP:-660} ;;
     926) FLAGS="ks --N 16 --NA 16 --ndns 16 --sigma-max 5 --iex 0.01"
          TRAIN="--NE 1000000 --numenvs 16 --maxupd 1000 --fused --testfreq 10 --testepisodes 16"
-         TEST="--testepisodes 16" RES=_result_ks CAP=300 ;;
+         TEST="--testepisodes 16" RES=_result_ks CAP=${CAP:-300} ;;
     *) echo "usage: $0 <out dir> 918|926 [seed ...]" >&2; exit 2 ;;
 esac
 

@@ -83,7 +83,8 @@ def main() -> int:
     for gen in range(2):
         traj, _ = rollout.collect_episodes(env, rl_cfg, ts, g, tc.num_envs, gen * tc.num_envs)
         ts, rep = trainer.insert_generation(rl_cfg, ts, rep, traj)
-    trainer.run_updates(rl_cfg, ts, rep, g, 5)           # warm-up
+    # warm-up: the graph of UPDATE_CHUNK updates is captured here, unprofiled
+    trainer.run_updates(rl_cfg, ts, rep, g, trainer.UPDATE_CHUNK)
     T = env.episode_length
     profiled(f"{which} collect",
              lambda: rollout.collect_episodes(env, rl_cfg, ts, g, tc.num_envs, 2 * tc.num_envs),

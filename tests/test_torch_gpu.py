@@ -448,29 +448,34 @@ def _learner(cuda, mode):
 
 @pytest.mark.parametrize("mode", ["experience", "episode"])
 def test_graph_replays_of_the_update_match_eager_calls(cuda, mode):
-    """Three updates through run_updates (the first for real, the capture's
-    warm-up, then two replays) against three eager calls from the same state:
-    the same bits in the parameters, Adam's state, beta, the counter, the
-    replay and the generator; the MLP kernel's launches counted per replay."""
+    """Two calls of UPDATE_CHUNK + 3 updates through run_updates (the first
+    call's are the warm-ups of the 50-update graph and of the 3-update
+    remainder, run for real; the second replays each once) against as many
+    eager calls from the same state: the same bits in the parameters, Adam's
+    state, beta, the counter, the replay and the generator; the MLP kernel's
+    launches counted per replay."""
     from marlpde_tpu_torch.train import trainer
     from marlpde_tpu_torch.utils import graphs
+    n = trainer.UPDATE_CHUNK + 3
     cfg, ts, rep, g = _learner(cuda, mode)
     ts_e, rep_e, g_e = _copies(ts, rep, g)
     with graphs.eager():
         before = mlp.launches
-        _, _, m_e = trainer.run_updates(cfg, ts_e, rep_e, g_e, 3)
-        per_update = (mlp.launches - before) / 3
+        for _ in range(2):
+            _, _, m_e = trainer.run_updates(cfg, ts_e, rep_e, g_e, n)
+        per_update = (mlp.launches - before) / (2 * n)
     before, replays = mlp.launches, graphs.replays
-    _, _, m_g = trainer.run_updates(cfg, ts, rep, g, 3)
+    for _ in range(2):
+        _, _, m_g = trainer.run_updates(cfg, ts, rep, g, n)
     torch.cuda.synchronize()
     assert graphs.replays - replays == 2
-    assert mlp.launches - before == 3 * per_update == (3 if mode == "experience" else 0)
+    assert mlp.launches - before == 2 * n * per_update == (2 * n if mode == "experience" else 0)
     left = list(ts.net.parameters()) + [s for st in ts.opt.state.values() for s in st.values()]
     right = list(ts_e.net.parameters()) + [s for st in ts_e.opt.state.values()
                                            for s in st.values()]
     left += [ts.beta, ts.n_updates, *graphs.tensors(rep), g.get_state()]
     right += [ts_e.beta, ts_e.n_updates, *graphs.tensors(rep_e), g_e.get_state()]
-    assert int(ts.n_updates) == 3 and len(left) == len(right)
+    assert int(ts.n_updates) == 2 * n and len(left) == len(right)
     assert all(_same_bits(a, b) for a, b in zip(left, right))
     assert all(_same_bits(m_g[k], m_e[k]) for k in m_e)
 
@@ -568,10 +573,11 @@ def test_registered_generator_follows_a_manual_seed(cuda):
 
 @pytest.mark.parametrize("mode", ["experience", "episode"])
 def test_mesh_update_replays_with_nccl_all_reduces_match_eager_calls(cuda, mode):
-    """A world of 1 on NCCL: four updates through run_updates with the mesh
-    (the first for real, the capture's warm-up, then three replays of the
-    update captured with its all_reduces) against four eager calls from the
-    same state: the same bits, and each replay counts the update's
+    """A world of 1 on NCCL: two calls of UPDATE_CHUNK + 3 updates through
+    run_updates with the mesh (the first call's are the warm-ups of the
+    50-update graph, which holds 50 updates' all_reduces, and of the 3-update
+    remainder; the second replays each once) against as many eager calls
+    from the same state: the same bits, and each replay counts its updates'
     all_reduces (experience mode: the reward-scale and off-policy sums and
     the gradients' mean; episode mode: one mean)."""
     import torch.distributed as dist
@@ -582,18 +588,22 @@ def test_mesh_update_replays_with_nccl_all_reduces_match_eager_calls(cuda, mode)
     mesh = pmesh.make_mesh(cuda)
     try:
         assert mesh.world == 1 and mesh.backend == "nccl" and mesh.captures
+        n = trainer.UPDATE_CHUNK + 3
         cfg, ts, rep, g = _learner(cuda, mode)
         ts_e, rep_e, g_e = _copies(ts, rep, g)
         with graphs.eager():
             before = pmesh.all_reduces
-            _, _, m_e = trainer.run_updates(cfg, ts_e, rep_e, g_e, 4, group=mesh, mini_batch=8)
-            per_update = (pmesh.all_reduces - before) / 4
+            for _ in range(2):
+                _, _, m_e = trainer.run_updates(cfg, ts_e, rep_e, g_e, n, group=mesh,
+                                                mini_batch=8)
+            per_update = (pmesh.all_reduces - before) / (2 * n)
         before, replays = pmesh.all_reduces, graphs.replays
-        _, _, m_g = trainer.run_updates(cfg, ts, rep, g, 4, group=mesh, mini_batch=8)
+        for _ in range(2):
+            _, _, m_g = trainer.run_updates(cfg, ts, rep, g, n, group=mesh, mini_batch=8)
         torch.cuda.synchronize()
-        assert graphs.replays - replays == 3
+        assert graphs.replays - replays == 2
         assert per_update == (3 if mode == "experience" else 1)
-        assert pmesh.all_reduces - before == 4 * per_update
+        assert pmesh.all_reduces - before == 2 * n * per_update
     finally:
         graphs.forget(mesh)
         if started:
@@ -603,6 +613,6 @@ def test_mesh_update_replays_with_nccl_all_reduces_match_eager_calls(cuda, mode)
                                            for s in st.values()]
     left += [ts.beta, ts.n_updates, *graphs.tensors(rep), g.get_state()]
     right += [ts_e.beta, ts_e.n_updates, *graphs.tensors(rep_e), g_e.get_state()]
-    assert int(ts.n_updates) == 4 and len(left) == len(right)
+    assert int(ts.n_updates) == 2 * n and len(left) == len(right)
     assert all(_same_bits(a, b) for a, b in zip(left, right))
     assert all(_same_bits(m_g[k], m_e[k]) for k in m_e)

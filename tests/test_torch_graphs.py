@@ -8,8 +8,9 @@ shapes and host values as the first replay, as a graph would.  Held against
 the JAX package: the graphed updates of both minibatch modes across a
 generation boundary (cursor, live count and update counter change), and the
 graphed collection at the flagship's widths on injected actions.  Held
-against the direct path, bit for bit: every env's collection and whole
-training runs of both modes; a collection under a second RL config on the
+against the direct path, bit for bit: every env's collection, whole
+training runs of both modes, and n updates of both modes replayed 50 to a
+graph with the rest as its own graph; a collection under a second RL config on the
 same objects (fault F1: the config was not in the graph's key).  And: the
 W2 image after an optimizer step that bumps no version counter, the launch
 accounting per replay, a capture that fails, and Adam's ``capturable``
@@ -114,8 +115,9 @@ def test_graphed_experience_updates_across_a_generation_boundary(replayed, monke
         for k, v in tm.items():
             np.testing.assert_allclose(np.asarray(v), np.asarray(jm[k]), rtol=RTOL, atol=ATOL,
                                        err_msg=k)
-    # one warm-up update, then replays: 2 in the first generation, 3 in the second
-    assert graphs.replays - replays == 5 and int(ts.n_updates) == 6
+    # three updates are one graph: its warm-up runs the first generation's
+    # three for real, one replay runs the second's
+    assert graphs.replays - replays == 1 and int(ts.n_updates) == 6
 
 
 def test_graphed_episode_updates_across_a_generation_boundary(replayed, monkeypatch):
@@ -157,6 +159,68 @@ def test_graphed_episode_updates_across_a_generation_boundary(replayed, monkeypa
             np.testing.assert_allclose(np.asarray(v), np.asarray(jm[k]), rtol=RTOL, atol=ATOL,
                                        err_msg=k)
     assert int(ts.n_updates) == 4
+
+
+def _small_learner(mode):
+    """A float64 train state and a replay with two generations inserted, in
+    either minibatch mode, the same at every call."""
+    cfg, jts, tcfg, ts = _states(lr=1e-2, minibatch_mode=mode)
+    rep = (tflat.init_flat(16, 4, 2, cfg.obs_dim, cfg.act_dim, dtype=torch.float64)
+           if mode == "experience" else treplay.init(4, 5, 2, cfg.obs_dim, cfg.act_dim,
+                                                     dtype=torch.float64))
+    for seed in (0, 1):
+        b = {k: torch.from_numpy(v) for k, v in _batch(seed).items()}
+        ts, rep = ttr.insert_generation(tcfg, ts, rep, b)
+    return tcfg, ts, rep
+
+
+def _learner_tensors(ts, rep):
+    return graphs.tensors((list(ts.net.parameters()), list(ts.opt.state.values()), ts.beta,
+                           ts.n_updates, rep))
+
+
+@pytest.mark.parametrize("mode", ["experience", "episode"])
+@pytest.mark.parametrize("n", [0, 1, 49, 50, 51, 120])
+def test_chunked_updates_give_the_bits_of_direct_updates(n, mode, monkeypatch):
+    """``run_updates`` replays one graph of UPDATE_CHUNK updates n // 50
+    times and one of the n % 50 left; the first call's warm-ups are real
+    updates and count toward n.  Two generations of n updates, graphed and
+    direct, from one state and one generator stream: the same bits after
+    each, n updates a generation, no capture in the second, whose replays
+    are one per graph."""
+    assert ttr.UPDATE_CHUNK == 50
+    runs = []
+    for graphed in (False, True):
+        with monkeypatch.context() as m:
+            captures = []
+            if graphed:
+                standins.use(m, standins.Replayed)
+                real = graphs.capture
+                m.setattr(graphs, "capture", lambda name, *a, **k: (
+                    captures.append(name), real(name, *a, **k))[1])
+            tcfg, ts, rep = _small_learner(mode)
+            gen = torch.Generator().manual_seed(5)
+            states, metrics = [], []
+            for g in (1, 2):
+                replays, before = graphs.replays, len(captures)
+                ts, rep, mets = ttr.run_updates(tcfg, ts, rep, gen, n)
+                assert int(ts.n_updates) == g * n
+                states.append([t.clone() for t in _learner_tensors(ts, rep)])
+                metrics.append({k: v.clone() for k, v in mets.items()})
+                if graphed and g == 2:
+                    assert len(captures) == before
+                    assert graphs.replays - replays == (n // 50) + (n % 50 > 0)
+            if graphed:
+                lengths = [50] * (n >= 50) + [n % 50] * (n % 50 > 0)
+                assert captures == [f"{k} {mode}-mode updates" for k in lengths]
+            runs.append((states, metrics))
+    (sd, md), (sg, mg) = runs
+    for a_gen, b_gen in zip(sd, sg):
+        assert len(a_gen) == len(b_gen)
+        for a, b in zip(a_gen, b_gen):
+            torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    for a, b in zip(md, mg):
+        assert set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
 
 
 # the flagship's widths (32 points, 32 actions, 32 agents, 10 sub-steps a

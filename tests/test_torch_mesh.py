@@ -697,15 +697,16 @@ def test_mesh_graphs_give_the_direct_bits_on_two_ranks(tmp_path):
     updates with their all_reduces, through the stand-ins) ends with the
     direct run's train state, normalizers, replay shard and returns, bit for
     bit; each rank captured the training macro-step, the test macro-step and
-    the update once in the run, and kept no graph of the group's collectives
+    its 3 updates (one graph, trainer.run_updates' remainder of UPDATE_CHUNK)
+    once in the run, and kept no graph of the group's collectives
     after it (NCCL cannot destroy a communicator such a graph holds); the
     ranks end equal."""
     spec = dict(small=SMALL, tests=os.path.join(ROOT, "tests"), out=str(tmp_path / "out"))
     rcs, outs = dryrun.launch(2, [json.dumps(spec)], code=GRAPH_WORKER, timeout=300)
     assert rcs == [0, 0], "\n".join(outs)
     res = [json.load(open(tmp_path / f"out.{r}.json")) for r in range(2)]
-    for mode, update in (("experience", "experience-mode update"),
-                         ("episode", "episode-mode update")):
+    for mode, update in (("experience", "3 experience-mode updates"),
+                         ("episode", "3 episode-mode updates")):
         for r in res:
             got = r[mode]
             assert got["equal"] == got["tensors"] > 20, (mode, got)

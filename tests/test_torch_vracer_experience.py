@@ -189,3 +189,105 @@ def test_beta_anneals_against_the_replay_fraction(frac_off, rises, monkeypatch):
     want = (1 - cfg.lr) * beta0 + cfg.lr if rises else (1 - cfg.lr) * beta0
     assert ts1.beta.item() == pytest.approx(want, rel=1e-12)
     assert (m["frac_off_replay"].item() <= cfg.offpolicy_target) == rises
+
+
+def test_fifty_updates_in_lockstep(monkeypatch):
+    """50 sequential experience-mode updates from one state, the minibatch
+    ids of each drawn from one numpy stream over the live range and patched
+    into both packages' ``sample_ids``: every 10 updates the parameters,
+    Adam's state, beta, the counter and every replay field match JAX's at
+    the 1e-9 relative tolerance, so no drift builds up over updates that one
+    update's comparison would not show."""
+    cfg, jts, tcfg, ts = _states(lr=1e-2)
+    jts, jrep, ts, trep = _insert_both(cfg, jts, tcfg, ts)
+    ts = train_state_from_jax(tcfg, jts)
+    rng = np.random.default_rng(12)
+    ids = rng.integers(trep.cursor - trep.live, trep.cursor, size=(50, len(IDS)))
+    # the ids ride in the key argument, so that one jitted JAX update takes them all
+    monkeypatch.setattr(jflat, "sample_ids", lambda rep, key, n: key)
+    draw = iter(ids)
+    monkeypatch.setattr(tflat, "sample_ids", lambda rep, gen, n: torch.from_numpy(next(draw)))
+    jupdate = jax.jit(lambda ts_, rep_, g: jv.update_experience(cfg, ts_, rep_, g))
+    for k, g in enumerate(ids, 1):
+        jts, jrep, jm = jupdate(jts, jrep, jnp.asarray(g))
+        ts, trep, tm = tv.update_experience(tcfg, ts, trep, None)
+        if k % 10:
+            continue
+        back = train_state_to_jax(tcfg, ts, jts)
+        for a, b in zip(jax.tree.leaves((back.params, back.opt_state)),
+                        jax.tree.leaves((jts.params, jts.opt_state))):
+            np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=RTOL, atol=ATOL,
+                                       err_msg=f"after update {k}")
+        np.testing.assert_allclose(ts.beta.numpy(), np.asarray(jts.beta), rtol=1e-14)
+        assert int(ts.n_updates) == int(jts.n_updates) == k
+        _assert_replay(trep, jrep)
+        for name, v in tm.items():
+            np.testing.assert_allclose(np.asarray(v), np.asarray(jm[name]), rtol=RTOL,
+                                       atol=ATOL, err_msg=f"{name} after update {k}")
+
+
+# fault F2 (run 926 at seed 7, generation 103, update 994 of the generation,
+# on the card): KS's learner (sigma_relative, sigma_max 5, the dimension
+# temper) where one sampled row's sigma was 1.06e-4 against a mean of
+# 5.8e-3, so z = (bound - mu) / sigma reached 4.7e4.  Here every row's sigma
+# is 9.9e-5 (mu 0, |z| = 5.05e4, a value where torch.special.log_ndtr's
+# float32 backward is inf), some sampled actions at a bound (run 918's
+# first non-finite row) and the rest inside (run 926's), so every log-ratio
+# is clipped at -20 and every row is far-policy
+F2_SIGMA_BIAS = -5.086
+F2_CFG = dict(obs_dim=3, act_dim=4, width=8, init_noise=0.01, sigma_max=5.0,
+              mu_param="sigma_relative", cutoff_dim_norm=True)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_an_update_with_sigma_far_below_the_bounds_stays_finite_as_in_jax(dtype, monkeypatch):
+    """Fault F2: with the current policy's sigma 9.9e-5 under bounds of +-5,
+    z = (bound - mu) / sigma is about -5.05e4 in both tails of every sampled
+    action's log-probability.  torch.special.log_ndtr's backward loses
+    exp(-(log_ndtr(z) + z^2/2)) there in float32 (0 or inf), and
+    ``log_prob``'s unselected bound branch turned its zero cotangent into
+    0 * inf = NaN; JAX's log_ndtr (its value and its derivative rule, which
+    the port now computes) stays finite.  One update of each package from
+    the same state: every parameter, Adam moment and beta finite, the log-
+    ratios clipped at -20, and the two packages equal (float64 at 1e-9,
+    float32 at 1e-5 relative)."""
+    cfg, jts, tcfg, ts = _states(**F2_CFG)
+    jts, jrep, ts, trep = _insert_both(cfg, jts, tcfg, ts)
+    p = jts.params["params"]
+    heads = {"Dense_3": 0.0, "Dense_4": F2_SIGMA_BIAS}     # mu, sigma: constant outputs
+    p = {**p, **{k: dict(kernel=jnp.zeros_like(p[k]["kernel"]),
+                         bias=jnp.full_like(p[k]["bias"], b)) for k, b in heads.items()}}
+    jts = jts.replace(params={"params": p})
+    # half the sampled experiences act at a bound, as a clipped sample does
+    s = IDS % 16
+    jrep = jrep.replace(actions=jrep.actions.at[s[::2], :, ::2].set(-5.0)
+                        .at[s[1::2], :, 1::2].set(5.0))
+    if dtype == "float32":
+        jts = jax.tree.map(lambda a: a.astype(jnp.float32) if a.dtype == jnp.float64 else a, jts)
+        jrep = jax.tree.map(lambda a: a.astype(jnp.float32) if a.dtype == jnp.float64 else a,
+                            jrep)
+        jts = jts.replace(opt_state=jv.make_optimizer(cfg).init(jts.params))
+    ts = train_state_from_jax(tcfg, jts)
+    trep = flat_from_jax(jrep)
+    monkeypatch.setattr(jflat, "sample_ids", lambda rep, key, n: jnp.asarray(IDS))
+    monkeypatch.setattr(tflat, "sample_ids", lambda rep, gen, n: torch.from_numpy(IDS))
+
+    _, mu, sigma = ts.net(tv._prep_obs(tcfg, ts, tflat.gather(trep, torch.from_numpy(IDS))["obs"]))
+    assert sigma.dtype == getattr(torch, dtype)
+    assert 4e4 < ((5.0 - mu.abs()) / sigma).min().item() < 6e4
+    jts1, jrep1, jm = jv.update_experience(cfg, jts, jrep, jax.random.key(0))
+    ts1, trep1, tm = tv.update_experience(tcfg, ts, trep, None)
+
+    back = train_state_to_jax(tcfg, ts1, jts1)
+    leaves = jax.tree.leaves((back.params, back.opt_state, back.beta))
+    jleaves = jax.tree.leaves((jts1.params, jts1.opt_state, jts1.beta))
+    assert all(np.isfinite(np.asarray(a)).all() for a in jleaves)
+    assert all(np.isfinite(np.asarray(a)).all() for a in leaves)
+    rtol = RTOL if dtype == "float64" else 1e-5
+    for a, b in zip(leaves, jleaves):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=rtol, atol=rtol * 1e-3)
+    assert tm["mean_rho"].item() == pytest.approx(float(jm["mean_rho"]), rel=rtol)
+    assert tm["frac_far"].item() == float(jm["frac_far"]) == 1.0
+    for k in ("loss", "kl_loss", "v_loss"):
+        assert np.isfinite(tm[k].item())
+        np.testing.assert_allclose(tm[k].item(), float(jm[k]), rtol=rtol, err_msg=k)
