@@ -83,18 +83,28 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    tests/test_rl.py's diffusion learning test.
 
 17. [apg] burger-jax --learner apg through the CLI (RUN_APG: N = NA = 32,
-   N_dns 512, width 256, 16 episodes of 500 RK3 macro-steps, 2 iterations),
-   then --test of its checkpoint, and the peak memory of one backward pass
-   with and without the per-macro-step checkpointing (APG_MEMORY_STEPS); [apg-agree] the return
-   and its gradient (B=4, 20 macro-steps) and burger_grad's Jacobians on the
-   card against the CPU, in float32 and float64;
+   N_dns 512, width 256, 16 episodes of 500 RK3 macro-steps, 2 iterations,
+   each 2 x 500 + 2 graph replays), then --test of its checkpoint, and the
+   peak memory of one backward pass with and without the per-macro-step
+   checkpointing (APG_MEMORY_STEPS); then APG_BPTT_ITERATIONS iterations at
+   APG_MEMORY_STEPS macro-steps graphed and under graphs.eager(), held bit
+   for bit (returns, parameters, incumbent, Adam's state, generator), with
+   seconds an iteration both ways, graph replays an iteration, the peak
+   memory, and under torch.profiler one more iteration's host calls and
+   device busy share; [apg-agree] the return and its gradient (B=4, 20
+   macro-steps) and burger_grad's Jacobians on the card against the CPU, in
+   float32 and float64, and train_apg's graphed return and gradient
+   (apg.Bptt) against the checkpointed episode_return's on the card;
 18. [cmaes] cmaes-burger through the CLI (N_dns 512, N 32, population 8,
-   500 macro-steps, 3 generations), and its objective on the card against
-   the CPU at three cs;
+   500 macro-steps, 3 generations; the objective one graph a macro-step),
+   its objective on the card against the CPU at three cs, and graphed
+   against graphs.eager() bit for bit with seconds both ways;
 19. [ddp] the ddp pipeline at tests/test_ddp.py::TestPipelineScale's scale
    (N=1024 DNS of 4000 steps, n_les 128, 80 epochs, a-priori and
-   a-posteriori checks), a transfer step with frozen layers, and the card's
-   DNS against the CPU's from the same draws;
+   a-posteriori checks) and a transfer step with frozen layers, graphed (one
+   graph per DNS forcing block, per epoch, per LES step) and under
+   graphs.eager(), bit for bit, with seconds per stage both ways; and the
+   card's DNS against the CPU's from the same draws;
 20. [mesh] the run-918 flags with --mesh through the CLI at a world of 1 on
    NCCL (RUN_MESH: 3 generations, updates from the second, replays of 50
    updates captured with their all_reduces, then --resume for a fourth);
@@ -120,7 +130,8 @@ A [timing] line gives each phase's seconds.
 
 Every training path runs its updates and its collections' macro-steps as
 CUDA graph replays ([mesh-2]'s gloo ranks their collections only: gloo
-all-reduces through the host, which a capture refuses), and a replay adds to
+all-reduces through the host, which a capture refuses), APG, CMA-ES and ddp
+their loops' bodies, and a replay adds to
 each kernel's count the launches its capture saw.  Launch counts are set to 0 just before each path and read
 just after; the comparisons of a kernel with its plain version are not
 counted.  The
@@ -275,6 +286,10 @@ APG_BLOWN_SEED = 42
 # the saved tensors grow with the macro-steps (at the CLI's 500, 11.1 and
 # 205.9 MiB on an H100)
 APG_MEMORY_STEPS = 100
+# [apg]'s graphed APG iterations against graphs.eager() at APG_MEMORY_STEPS
+# macro-steps (the CLI's 16 episodes, lr 1e-3): timed iterations, then one more
+# under torch.profiler
+APG_BPTT_ITERATIONS = 2
 # [apg-agree]: the return and its gradient at B=4 over 20 macro-steps of 10
 # RK3 sub-steps (T 0.2) at burger-jax's widths, card against CPU.  float32:
 # within AGREE_FACTOR times the CPU's own float32 distance from float64 on the
@@ -304,6 +319,9 @@ CMAES_CS = (0.0, 0.2, 0.8)
 # float32 DNS is compared over DDP_AGREE_STEPS
 DDP_SEEDS = (7, 1)
 DDP_AGREE_STEPS = 200
+# [ddp]: calls of the rollout and the transfer step timed each way (graphed,
+# each call with its own capture, and under graphs.eager()); the medians
+DDP_REPEATS = 5
 # [mesh]: the run-918 flags with --mesh at a world of 1 (NCCL), cut to 3
 # generations (--NE 15000) of MESH_UPDATES updates (--maxupd); --rstart 10000
 # makes generation 2 the first with updates (5000 live steps a generation),
@@ -1941,23 +1959,88 @@ def _apg_memory(env, rl_cfg, ts, checkpoint):
     return torch.cuda.max_memory_allocated() - base, seconds, ret.item()
 
 
+def _stream_workspace_bytes():
+    """Device bytes that a first matmul on a stream new to cuBLAS leaves
+    allocated: the workspace cuBLAS keeps for each stream."""
+    import torch
+
+    a = torch.ones((64, 64), device="cuda")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    with torch.cuda.stream(torch.cuda.Stream()):
+        b = a @ a
+    torch.cuda.synchronize()
+    del b
+    return torch.cuda.memory_allocated() - base
+
+
+def _apg_bptt(env, rl_cfg, net_state, eager, depth=APG_MEMORY_STEPS, profile=True):
+    """APG_BPTT_ITERATIONS iterations of ``apg.Bptt`` as ``train_apg`` runs
+    them, at ``depth`` macro-steps from ``net_state``, graphed or under
+    ``graphs.eager()``, then one more, under torch.profiler where graphed and
+    ``profile`` (the profiler records every kernel a replay runs, ~1300 a
+    macro-step, and an eager iteration's launches too: at 500 macro-steps,
+    or eager at 100, reading them back costs minutes).  Returns (the
+    tensors to hold bit for bit: each iteration's return and best, the
+    parameters, the incumbent, Adam's state, the generator's state; seconds
+    of each timed iteration; graph replays of each; ``_profiled`` of the
+    profiled one, or None; each timed iteration's peak device bytes above what was
+    allocated before the Bptt was made; the tape's bytes)."""
+    import torch
+    from marlpde_tpu_torch.rl import apg, vracer
+    from marlpde_tpu_torch.utils import graphs
+
+    env = dataclasses.replace(env, episode_length=depth)
+    ts = vracer.init_train(rl_cfg, torch.Generator(device=env.device), device=env.device)
+    ts.net.load_state_dict(net_state)
+    g = torch.Generator(device=env.device).manual_seed(5)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    seconds, replays, outs, peak = [], [], [], []
+    with graphs.eager() if eager else contextlib.nullcontext():
+        bptt = apg.Bptt(env, rl_cfg, ts, apg.ApgConfig(batch_size=16), env.consts, g)
+        for _ in range(APG_BPTT_ITERATIONS):
+            torch.cuda.reset_peak_memory_stats()
+            r0, t0 = graphs.replays, time.perf_counter()
+            bptt.iteration()
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            replays.append(graphs.replays - r0)
+            peak.append(torch.cuda.max_memory_allocated() - base)
+            outs.append(bptt.out.clone())
+        profiled = _profiled(bptt.iteration) if profile and not eager else None
+        if profiled is None:
+            bptt.iteration()
+        outs.append(bptt.out.clone())
+    tape = sum(t.numel() * t.element_size() for t in graphs.tensors(bptt.tape))
+    state = [v for st in bptt.opt.state.values() for v in st.values()]
+    return ([*outs, *bptt.params, *bptt.best, bptt.best_ret, *state, g.get_state()],
+            seconds, replays, profiled, peak, tape)
+
+
 def phase_apg():
     """burger-jax --learner apg through the CLI (RUN_APG): 2 iterations of
     analytic policy gradient through the differentiable RK3 rollout, the
     policy forward through the module (no kernel); then --test of its
     checkpoint, whose acting goes through the MLP kernel.  Then one return
     and its backward pass with and without the per-macro-step checkpointing,
-    their peak memory."""
+    their peak memory; then train_apg's iterations graphed against
+    graphs.eager() (``_apg_bptt``)."""
     import numpy as np
     import torch
     from marlpde_tpu_torch import run
     from marlpde_tpu_torch.rl import apg, vracer
+    from marlpde_tpu_torch.utils import graphs
 
+    replays = graphs.replays
     (ts, rep, hist), line, seconds, launches_train = _main_json(RUN_APG, "apg")
-    print(f"[apg] 2 iterations of 16 episodes x 500 macro-steps x 10 RK3 sub-steps: "
-          f"{seconds:.3f} s ({seconds / 2:.3f} s an iteration, pool and build included); "
-          f"returns {hist['mean_return']}, best {hist['best_return'][-1]}; launches "
-          f"{launches_train}")
+    replays = graphs.replays - replays
+    print(f"[apg] 2 iterations of 16 episodes x 500 macro-steps x 10 RK3 sub-steps, graphed: "
+          f"{seconds:.3f} s ({seconds / 2:.3f} s an iteration, pool, captures and their "
+          f"warm-ups included); {replays} graph replays (2 x (2 x 500 + 2) less the 4 "
+          f"warm-ups); returns {hist['mean_return']}, best {hist['best_return'][-1]}; "
+          f"launches {launches_train}")
+    check(replays == 2 * (2 * 500 + 2) - 4, f"[apg] {replays} graph replays in training")
     check(line == {"workload": "burger-jax", "learner": "apg",
                    "final_mean_return": hist["mean_return"][-1], "iterations": 2},
           f"[apg] JSON line {line}")
@@ -2005,12 +2088,53 @@ def phase_apg():
               f"{'with' if ck else 'without'} checkpointing {b / 2**20:.1f} MiB in {t:.3f} s "
               f"(return {r:.6g})" for ck, (b, t, r) in mem.items()))
     check(mem[True][2] == mem[False][2], f"[apg] the two passes' returns differ: {mem}")
+
+    print(f"[apg] a matmul on a stream new to cuBLAS leaves "
+          f"{_stream_workspace_bytes() / 2**20:.3f} MiB allocated (its workspace; the graphs' "
+          f"warm-ups and captures share one side stream)")
+    state = ts0.net.state_dict()
+    runs = {eager: _apg_bptt(env, rl_cfg, state, eager) for eager in (False, True)}
+    (got, sec_g, rep_g, prof_g, peak_g, tape), (want, sec_e, rep_e, _, peak_e, _) = (
+        runs[False], runs[True])
+    same = [_same(a, b)[0] for a, b in zip(got, want)]
+    T = APG_MEMORY_STEPS
+    # graphed at the CLI's 500 macro-steps, timed only (an eager iteration there takes ~20 s)
+    _, sec_500, rep_500, _, peak_500, tape_500 = _apg_bptt(env, rl_cfg, state, False, 500,
+                                                          profile=False)
+    wall, busy, calls = prof_g[:3]
+    print(f"[apg] a graphed iteration at 16 episodes x {T} macro-steps under torch.profiler: "
+          f"{wall:.3f} s, device busy {busy / wall:.1%}; host runtime calls {json.dumps(calls)}; "
+          f"the profiler's own {prof_g[4]:.1f} s")
+    print(f"[apg] graphed at 16 episodes x 500 macro-steps: seconds an iteration "
+          f"{', '.join(f'{t:.4f}' for t in sec_500)} (the first captures), graph replays "
+          f"{rep_500}; peak device memory above the baseline "
+          f"{', '.join(f'{b / 2**20:.1f}' for b in peak_500)} MiB (the tape "
+          f"{tape_500 / 2**20:.1f} MiB)")
+    check(rep_500 == [998, 1002], f"[apg] graph replays at 500 macro-steps {rep_500}")
+    print(f"[apg] {APG_BPTT_ITERATIONS} APG iterations (Bptt, as train_apg runs them) at 16 "
+          f"episodes x {T} macro-steps, graphed against graphs.eager(): "
+          f"{sum(same)} of {len(same)} tensors bitwise equal (returns, parameters, incumbent, "
+          f"Adam's state, generator); seconds an iteration graphed "
+          f"{', '.join(f'{t:.4f}' for t in sec_g)} (the first captures), eager "
+          f"{', '.join(f'{t:.4f}' for t in sec_e)} ({sec_e[-1] / sec_g[-1]:.1f}x); graph "
+          f"replays an iteration {rep_g} (2 T + 2 = {2 * T + 2}; the first iteration's 4 steps "
+          f"are the captures' warm-ups); peak device memory above the baseline of each "
+          f"iteration graphed {', '.join(f'{b / 2**20:.1f}' for b in peak_g)} MiB (the tape "
+          f"{tape / 2**20:.1f} MiB), eager {', '.join(f'{b / 2**20:.1f}' for b in peak_e)} MiB; "
+          f"returns {[float(o[0]) for o in got[:3]]}")
+    check(all(same) and len(same) == len(want), f"[apg] graphed against eager: {same}")
+    check(rep_g == [2 * T + 2 - 4] + [2 * T + 2] * (APG_BPTT_ITERATIONS - 1) and set(rep_e) == {0},
+          f"[apg] graph replays an iteration {rep_g}, eager {rep_e}")
+    check(prof_g[2].get("cudaGraphLaunch", 0) == 2 * T + 2,
+          f"[apg] host calls of a graphed iteration {prof_g[2]}")
     return {k: launches_train[k] + launches_test[k] for k in launches_train}
 
 
-def _apg_agree_grads(d, dtype, net_state):
+def _apg_agree_grads(d, dtype, net_state, bptt=False):
     """episode_return at APG_AGREE on device ``d`` in ``dtype`` from the
-    weights ``net_state``: (return, {name: gradient as float64 on the CPU})."""
+    weights ``net_state``: (return, {name: gradient as float64 on the CPU});
+    with ``bptt``, the same return and gradient as ``train_apg`` computes
+    them (apg.Bptt's forward tape and reverse VJPs; graphs on the card)."""
     import torch
     from marlpde_tpu_torch.envs import registry
     from marlpde_tpu_torch.rl import apg, vracer
@@ -2021,6 +2145,16 @@ def _apg_agree_grads(d, dtype, net_state):
     ts = vracer.init_train(rl_cfg, torch.Generator(device=d).manual_seed(0), dtype=dtype,
                            device=d)
     ts.net.load_state_dict(net_state)
+    if bptt:
+        run = apg.Bptt(env, rl_cfg, ts, apg.ApgConfig(batch_size=4), env.consts,
+                       torch.Generator(device=d))
+        run.steps["begin"]()
+        for name in ("forward", "vjp"):
+            for _ in range(run.T):
+                run.steps[name]()
+        # Bptt's gradients are of minus the return, which train_apg descends
+        return torch.mean(run.acc).item(), {n: -g.double().cpu() for (n, _), g in
+                                            zip(ts.net.named_parameters(), run.grads)}
     ret = apg.episode_return(env, rl_cfg, ts, env.consts, torch.Generator(device=d), 0, 4)
     ret.backward()
     return ret.item(), {n: p.grad.detach().double().cpu() for n, p in ts.net.named_parameters()
@@ -2067,6 +2201,8 @@ def phase_apg_agree(dev):
     t0 = time.perf_counter()
     runs = {(d, dt): _apg_agree_grads(d, dt, state)
             for d in ("cpu", dev) for dt in (torch.float32, torch.float64)}
+    runs.update({("bptt", dt): _apg_agree_grads(dev, dt, state, bptt=True)
+                 for dt in (torch.float32, torch.float64)})
     jacs = {(d, dt): _jacobians(d, dt) for d in ("cpu", dev)
             for dt in (torch.float32, torch.float64)}
     seconds = time.perf_counter() - t0
@@ -2092,20 +2228,34 @@ def phase_apg_agree(dev):
               f"[apg-agree] {what}: the card is farther from the CPU than {AGREE_FACTOR:g}x "
               f"the CPU's float32 rounding")
         check(max(f64_err.values()) <= AGREE_F64_TOL, f"[apg-agree] {what} in float64: {f64_err}")
+    graphed = dist(("bptt", f32), (dev, f32))
+    graphed64 = dist(("bptt", f64), (dev, f64))
+    witness = dist(("cpu", f32), ("cpu", f64))
+    print(f"[apg-agree] train_apg's return and gradient on the card (apg.Bptt graphed: the "
+          f"forward tape and the reverse VJPs) against the checkpointed episode_return's, max "
+          f"error over the largest |value|: float32 "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in graphed.items()})}; float64 "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in graphed64.items()})}")
+    check(all(graphed[k] <= AGREE_FACTOR * max(witness[k], 1e-7) for k in graphed),
+          f"[apg-agree] Bptt is farther from the checkpointed gradient than {AGREE_FACTOR:g}x "
+          f"the CPU's float32 rounding")
+    check(max(graphed64.values()) <= AGREE_F64_TOL, f"[apg-agree] Bptt in float64: {graphed64}")
     print(f"[apg-agree] B=4, 20 macro-steps, width 256; returns: card {runs[(dev, f32)][0]:.7g},"
           f" CPU {runs[('cpu', f32)][0]:.7g} (float32); {seconds:.3f} s")
 
 
 def phase_cmaes(dev):
     """cmaes-burger through the CLI (RUN_CMAES), then the card's objective
-    at CMAES_CS against the CPU's."""
+    at CMAES_CS against the CPU's, and graphed against graphs.eager()."""
     import numpy as np
     import torch
     from marlpde_tpu_torch.rl import cmaes
+    from marlpde_tpu_torch.utils import graphs
 
     out, line, seconds, launches = _main_json(RUN_CMAES, "cmaes")
-    print(f"[cmaes] 3 generations of 8 episodes x 500 macro-steps x 10 ABCN sub-steps: "
-          f"{seconds:.3f} s ({seconds / 3:.3f} s a generation, the pool included); {line}; "
+    print(f"[cmaes] 3 generations of 8 episodes x 500 macro-steps x 10 ABCN sub-steps, "
+          f"graphed: {seconds:.3f} s ({seconds / 3:.3f} s a generation, the pool and the "
+          f"capture included); {line}; "
           f"launches {launches}")
     check(out == line and list(line) == ["workload", "best_cs", "best_objective", "generations"]
           and line["generations"] == 3 and 0.0 <= line["best_cs"] <= 1.0
@@ -2114,9 +2264,26 @@ def phase_cmaes(dev):
     costs, secs = {}, {}
     for d, dt in ((dev, torch.float32), ("cpu", torch.float32), ("cpu", torch.float64)):
         f = cmaes.make_burger_cs_objective(device=d, dtype=dt)
+        if d is dev:
+            f_card = f
         t0 = time.perf_counter()
         costs[(d, dt)] = f(xs)
         secs[(d, dt)] = time.perf_counter() - t0
+    # the card's objective again: its graph's replays alone, then under eager
+    for tag in ("graphed", "eager"):
+        replays = graphs.replays
+        with graphs.eager() if tag == "eager" else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            costs[tag] = f_card(xs)
+            secs[tag] = time.perf_counter() - t0
+        replays = graphs.replays - replays
+        check(replays == (500 if tag == "graphed" else 0), f"[cmaes] {tag}: {replays} replays")
+    same = [np.array_equal(costs[t], costs[(dev, torch.float32)]) for t in ("graphed", "eager")]
+    print(f"[cmaes] objective at cs {CMAES_CS} (500 macro-steps of 10 ABCN sub-steps), graphed "
+          f"against graphs.eager(): bitwise equal {same}; seconds graphed "
+          f"{secs[(dev, torch.float32)]:.4f} (with the capture), {secs['graphed']:.4f} (500 "
+          f"replays), eager {secs['eager']:.4f} ({secs['eager'] / secs['graphed']:.1f}x)")
+    check(all(same), f"[cmaes] graphed against eager: {costs}")
     card = costs[(dev, torch.float32)]
     cpu = costs[("cpu", torch.float32)]
     err = float(np.abs(card - cpu).max() / np.abs(cpu).max())
@@ -2130,12 +2297,80 @@ def phase_cmaes(dev):
     return launches
 
 
+def _ddp_card(cfg, u0, draws, net, perms, dev, eager):
+    """The ddp pipeline on the card, graphed or under ``graphs.eager()``:
+    the DNS (4000 steps), the filter, 80 epochs of closure training at batch
+    64, the a-posteriori rollout from frame 190, a transfer step (Dense_0-5
+    frozen, 5 epochs at batch 25).  Returns (U, F, u_bar, PI, f_bar, the
+    model, the rollout, the transferred model, seconds per stage)."""
+    import torch
+    from marlpde_tpu_torch.ddp import pipeline
+    from marlpde_tpu_torch.utils import graphs
+
+    times = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        return out
+
+    tr, te, start = slice(0, 150), slice(150, 200), 190
+    with graphs.eager() if eager else contextlib.nullcontext():
+        U, F = timed("dns", lambda: pipeline.generate_dns(cfg, 4000, u0=u0, draws=draws,
+                                                          dtype=torch.float64, device=dev))
+        u_bar, pi, f_bar = timed("filter", lambda: pipeline.calc_bar(
+            U[::cfg.s], F[::cfg.s], cfg.n_les, cfg.L))
+        model = timed("train", lambda: pipeline.train_closure(
+            u_bar[tr], pi[tr], epochs=80, batch_size=64, net=net, perms=perms))
+        uu = timed("rollout", lambda: pipeline.aposteriori_rollout(
+            model, cfg, u_bar[start], u_bar[start - 1], f_bar[start:],
+            len(f_bar) - start - 1))
+        m2 = timed("transfer", lambda: pipeline.train_closure(
+            u_bar[te], pi[te], torch.Generator(device=dev).manual_seed(2), epochs=5,
+            batch_size=25, net=model.net, trainable_mask=pipeline.transfer_mask(model.net)))
+    return U, F, u_bar, pi, f_bar, model, uu, m2, times
+
+
+def _ddp_repeats(cfg, model, u_bar, pi, f_bar, eager):
+    """Median seconds of DDP_REPEATS calls each of ``_ddp_card``'s rollout
+    and transfer step on its trained ``model``, graphed or under
+    ``graphs.eager()``."""
+    import statistics
+
+    import torch
+    from marlpde_tpu_torch.ddp import pipeline
+    from marlpde_tpu_torch.utils import graphs
+
+    start, te = 190, slice(150, 200)
+    stages = {"rollout": lambda: pipeline.aposteriori_rollout(
+                  model, cfg, u_bar[start], u_bar[start - 1], f_bar[start:],
+                  len(f_bar) - start - 1),
+              "transfer": lambda: pipeline.train_closure(
+                  u_bar[te], pi[te], torch.Generator(device=u_bar.device).manual_seed(2),
+                  epochs=5, batch_size=25, net=model.net,
+                  trainable_mask=pipeline.transfer_mask(model.net))}
+    seconds = {}
+    with graphs.eager() if eager else contextlib.nullcontext():
+        for stage, fn in stages.items():
+            times = []
+            for _ in range(DDP_REPEATS):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            seconds[stage] = statistics.median(times)
+    return seconds
+
+
 def phase_ddp(dev):
     """tests/test_ddp.py::TestPipelineScale on the card: the N=1024
     stochastic DNS (4000 steps), the filter to n_les=128, the closure trained
     for 80 epochs at batch 64, its a-priori score against static
     Smagorinsky's, the a-posteriori rollout from frame 190; then a transfer
-    step (Dense_0-5 frozen), and the card against this machine's CPU from the
+    step (Dense_0-5 frozen), graphed and under graphs.eager(), bit for bit;
+    and the card against this machine's CPU from the
     same draws, net and permutations: the DNS, u_bar and PI over all 4000
     steps and the closure's weights after 1 and 80 epochs (float64), and the
     DNS over DDP_AGREE_STEPS in float32.  Returns the path's kernel launches."""
@@ -2160,39 +2395,41 @@ def phase_ddp(dev):
     net = copy.deepcopy(net_cpu).to(dev)
     perms = [torch.randperm(150, generator=g) for _ in range(80)]
 
+    # the first run builds the cuFFT plans and the libraries' handles
+    first = _ddp_card(cfg, u0, draws, net, perms, dev, False)[-1]
+    runs = {"eager": _ddp_card(cfg, u0, draws, net, perms, dev, True)}
     abcn.launches = 0
     mlp.launches = 0
-    times = {}
-    t0 = time.perf_counter()
-    U, F = pipeline.generate_dns(cfg, 4000, u0=u0, draws=draws, dtype=f64, device=dev)
-    torch.cuda.synchronize()
-    times["dns"] = time.perf_counter() - t0
+    runs["graphed"] = _ddp_card(cfg, u0, draws, net, perms, dev, False)
+    launches = dict(abcn_macro_step=abcn.launches, mlp_forward=mlp.launches)
+    (U, F, u_bar, pi, f_bar, model, uu, m2, times) = runs["graphed"]
+    tr, te = slice(0, 150), slice(150, 200)
+    start = 190
+    n_roll = len(f_bar) - start - 1
     check(U.shape == (4001, 1024) and U.is_cuda and bool(torch.isfinite(U).all()),
           f"[ddp] DNS {tuple(U.shape)}")
-    t0 = time.perf_counter()
-    u_bar, pi, f_bar = pipeline.calc_bar(U[::cfg.s], F[::cfg.s], cfg.n_les, cfg.L)
-    tr, te = slice(0, 150), slice(150, 200)
-    model = pipeline.train_closure(u_bar[tr], pi[tr], epochs=80, batch_size=64, net=net,
-                                   perms=perms)
-    torch.cuda.synchronize()
-    times["filter+train"] = time.perf_counter() - t0
     ev = pipeline.apriori_eval(model, u_bar[te], pi[te])
     smag = closures.ssm_forcing(u_bar[te], cfg.L / cfg.n_les, cfg.n_les).cpu().numpy()
     corr_smag = float(np.corrcoef(smag.ravel(), pi[te].cpu().numpy().ravel())[0, 1])
-    t0 = time.perf_counter()
-    start = 190
-    n_roll = len(f_bar) - start - 1
-    uu = pipeline.aposteriori_rollout(model, cfg, u_bar[start], u_bar[start - 1], f_bar[start:],
-                                      n_roll)
-    torch.cuda.synchronize()
-    times["rollout"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    mask = pipeline.transfer_mask(model.net)
-    m2 = pipeline.train_closure(u_bar[te], pi[te], torch.Generator(device=dev).manual_seed(2),
-                                epochs=5, batch_size=25, net=model.net, trainable_mask=mask)
-    torch.cuda.synchronize()
-    times["transfer"] = time.perf_counter() - t0
-    launches = dict(abcn_macro_step=abcn.launches, mlp_forward=mlp.launches)
+
+    def held(run):
+        U, F, u_bar, pi, _, model, uu, m2, _ = run
+        return [U, F, u_bar, pi, *model.net.parameters(), uu, *m2.net.parameters()]
+
+    bits = [_same(x, y)[0] for x, y in zip(held(runs["graphed"]), held(runs["eager"]))]
+    eager = runs["eager"][-1]
+    print(f"[ddp] graphed (one graph per DNS forcing block, per training epoch, per LES step) "
+          f"against graphs.eager(): {sum(bits)} of {len(bits)} tensors bitwise equal (U, F, "
+          f"u_bar, PI, the trained and the transferred weights, the rollout); seconds graphed "
+          f"{json.dumps({k: round(v, 4) for k, v in times.items()})} (each with its capture; "
+          f"the first run {json.dumps({k: round(v, 4) for k, v in first.items()})}), eager "
+          f"{json.dumps({k: round(v, 4) for k, v in eager.items()})}")
+    check(all(bits), f"[ddp] graphed against eager: {bits}")
+    med = {tag: _ddp_repeats(cfg, model, u_bar, pi, f_bar, tag == "eager")
+           for tag in ("graphed", "eager")}
+    print(f"[ddp] medians of {DDP_REPEATS} calls (graphed: each call with its own capture): "
+          + "; ".join(f"{stage} graphed {med['graphed'][stage]:.5f} s, eager "
+                      f"{med['eager'][stage]:.5f} s" for stage in med["eager"]))
     same = [torch.equal(a.weight, b.weight) and torch.equal(a.bias, b.bias)
             for a, b in zip(model.net.dense, m2.net.dense)]
     print(f"[ddp] N=1024 DNS 4000 steps, n_les=128, 80 epochs at batch 64 (float64): a-priori "

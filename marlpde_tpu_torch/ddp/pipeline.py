@@ -35,6 +35,7 @@ from torch import nn
 from marlpde_tpu_torch.core import spectral
 from marlpde_tpu_torch.device import resolve_device
 from marlpde_tpu_torch.rl import networks
+from marlpde_tpu_torch.utils import graphs
 
 
 # --------------------------------------------------------------- data generation
@@ -79,24 +80,52 @@ def generate_dns(cfg: DdpConfig, n_steps: int, generator: Optional[torch.Generat
     if draws is None:
         draws = torch.randn((n_blocks, 2, 3), generator=generator, dtype=dtype, device=device)
     draws = torch.as_tensor(draws, dtype=dtype, device=device)
-    kk = torch.arange(1, 4, dtype=dtype, device=device)
 
-    u, v = u0, spectral.fft(u0)
-    fn_old = k1 * spectral.fft(0.5 * u0 * u0)
-    us, fs = [u0[None]], [torch.zeros((1, N), dtype=dtype, device=device)]
-    for r in draws:
+    step = _DnsBlock(cfg, x, k1, C, u0, draws)
+    for _ in range(draws.shape[0]):
+        step.graph()
+    return step.U, step.F
+
+
+class _DnsBlock:
+    """One forcing block of ``generate_dns`` in place: block ``b`` (a device
+    counter) draws its forcing from ``draws[b]``, runs ``cfg.s`` ABCN steps
+    from the carry (u, v, fn_old) and writes their fields and the forcing to
+    rows b*s + 1 .. (b+1)*s of U and F (T+1, N), row 0 holding the IC.
+    ``graph`` calls it, as a CUDA graph on the card (utils/graphs.py)."""
+
+    def __init__(self, cfg: DdpConfig, x, k1, C, u0, draws):
+        self.cfg, self.x, self.k1, self.C, self.draws = cfg, x, k1, C, draws
+        rows = draws.shape[0] * cfg.s + 1
+        self.U = u0.new_zeros((rows, cfg.N))
+        self.F = u0.new_zeros((rows, cfg.N))
+        self.U[0] = u0
+        self.u, self.v = u0.clone(), spectral.fft(u0)
+        self.fn_old = k1 * spectral.fft(0.5 * u0 * u0)
+        self.b = torch.zeros((), dtype=torch.int64, device=u0.device)
+        self.kk = torch.arange(1, 4, dtype=u0.dtype, device=u0.device)
+        self.steps = torch.arange(cfg.s, device=u0.device)
+        self.graph = graphs.Step("ddp DNS block", self, u0.device)
+
+    def __call__(self):
+        cfg, x, kk, dt, L = self.cfg, self.x, self.kk, self.cfg.dt, self.cfg.L
+        r = self.draws.index_select(0, self.b.view(1))[0]
         amp = r[0] * cfg.forcing_amp / torch.sqrt(kk * cfg.s * dt)
         ph = 2.0 * np.pi * kk[:, None] * x[None, :] / L + 2.0 * np.pi * r[1][:, None]
         f = (amp[:, None] * torch.cos(ph)).sum(0)
         fnf = spectral.fft(f)
+        u, v, fn_old, us = self.u, self.v, self.fn_old, []
         for _ in range(cfg.s):
-            Fn = k1 * spectral.fft(0.5 * u * u)
-            v = ((1.0 - C) * v - 0.5 * dt * (3.0 * Fn - fn_old) + dt * fnf) / (1.0 + C)
+            Fn = self.k1 * spectral.fft(0.5 * u * u)
+            v = ((1.0 - self.C) * v - 0.5 * dt * (3.0 * Fn - fn_old) + dt * fnf) / (1.0 + self.C)
             u = spectral.irfft_real(v)
             fn_old = Fn
-            us.append(u[None])
-        fs.append(f.expand(cfg.s, N))
-    return torch.cat(us, 0), torch.cat(fs, 0)
+            us.append(u)
+        rows = self.b * cfg.s + 1 + self.steps
+        self.U.index_copy_(0, rows, torch.stack(us))
+        self.F.index_copy_(0, rows, f.expand(cfg.s, cfg.N))
+        graphs.copy_((self.u, self.v, self.fn_old), (u, v, fn_old))
+        self.b.add_(1)
 
 
 # ------------------------------------------------------------------- filtering
@@ -219,25 +248,45 @@ def train_closure(u_bar, pi, generator: Optional[torch.Generator] = None, epochs
     trainable = [p for i, lin in enumerate(net.dense)
                  if trainable_mask is None or trainable_mask[f"Dense_{i}"]
                  for p in lin.parameters()]
-    opt = torch.optim.Adam(trainable, lr=lr, eps=1e-8)
+    opt = graphs.adam(trainable, lr)
 
     n_samples = x.shape[0]
-    steps_per_epoch = max(n_samples // batch_size, 1)
-    loss = torch.tensor(np.inf)
+    step = _Epoch(net, opt, x, y, batch_size, max(n_samples // batch_size, 1))
     for ep in range(epochs):
-        perm = (torch.randperm(n_samples, generator=generator, device=x.device)
-                if perms is None else torch.as_tensor(perms[ep], device=x.device))
-        for i in range(steps_per_epoch):
-            idx = perm[i * batch_size:(i + 1) * batch_size]
-            opt.zero_grad(set_to_none=True)
-            loss = torch.mean((net(x[idx]) - y[idx]) ** 2)
-            loss.backward()
-            opt.step()
+        step.perm.copy_(torch.randperm(n_samples, generator=generator, device=x.device)
+                        if perms is None else torch.as_tensor(perms[ep], device=x.device))
+        step.graph()
         if verbose and ep % 10 == 0:
-            print(f"[ddp] epoch {ep} loss {float(loss):.6f}")
+            print(f"[ddp] epoch {ep} loss {float(step.loss):.6f}")
 
     return ClosureModel(net=net, mean_in=float(mean_in), std_in=float(std_in),
                         mean_out=float(mean_out), std_out=float(std_out))
+
+
+class _Epoch:
+    """One epoch of ``train_closure`` in place: ``steps`` Adam steps on the
+    minibatches of ``batch_size`` rows that ``perm`` (refilled before each
+    epoch) orders, the last loss in ``loss``.  ``graph`` calls it, as a CUDA
+    graph on the card (utils/graphs.py): the JAX package's jitted step under
+    its loop."""
+
+    def __init__(self, net, opt, x, y, batch_size: int, steps: int):
+        self.net, self.opt, self.x, self.y = net, opt, x, y
+        self.batch_size, self.steps = batch_size, steps
+        self.perm = torch.zeros(x.shape[0], dtype=torch.int64, device=x.device)
+        self.loss = torch.full((), np.inf, dtype=x.dtype, device=x.device)
+        self.graph = graphs.Step("ddp closure epoch", self, x.device)
+
+    def __call__(self):
+        bs = self.batch_size
+        for i in range(self.steps):
+            idx = self.perm[i * bs:(i + 1) * bs]
+            self.opt.zero_grad(set_to_none=True)
+            loss = torch.mean((self.net(self.x[idx]) - self.y[idx]) ** 2)
+            loss.backward()
+            self.opt.step()
+        with torch.no_grad():
+            self.loss.copy_(loss)
 
 
 def transfer_mask(net: ClosureNet, n_frozen: int = 6) -> dict:
@@ -288,18 +337,39 @@ def aposteriori_rollout(model: ClosureModel, cfg: DdpConfig, u_init, u_prev,
     D2 = torch.as_tensor(k * k, dtype=rdtype, device=device)
     D2x = torch.as_tensor(1.0 + 0.5 * dt * nu * k * k, dtype=rdtype, device=device)
 
-    u, u_old, v = u_init, u_prev, spectral.fft(u_init)
-    pi_prev = model.predict(u_prev)
-    us = [u_init]
-    for f in f_bar_seq[:n_steps]:
-        pi_n = model.predict(u)
+    step = _LesStep(model, cfg, k1, D2, D2x, u_init, u_prev, f_bar_seq[:n_steps])
+    for _ in range(step.f_bar.shape[0]):
+        step.graph()
+    return step.uu
+
+
+class _LesStep:
+    """One a-posteriori LES step in place: step ``k`` (a device counter)
+    advances (u, v, u_old, pi_prev) under the forcing ``f_bar[k]`` and writes
+    the new field to row k + 1 of ``uu``.  ``graph`` calls it, as a CUDA
+    graph on the card (utils/graphs.py)."""
+
+    def __init__(self, model, cfg: DdpConfig, k1, D2, D2x, u_init, u_prev, f_bar):
+        self.model, self.k1, self.D2, self.D2x, self.f_bar = model, k1, D2, D2x, f_bar
+        self.dt, self.nu = cfg.s * cfg.dt, cfg.nu          # the LES runs at s*dt
+        self.u, self.u_old, self.v = u_init.clone(), u_prev.clone(), spectral.fft(u_init)
+        self.pi_prev = model.predict(u_prev)
+        self.uu = u_init.new_zeros((f_bar.shape[0] + 1,) + u_init.shape)
+        self.uu[0] = u_init
+        self.k = torch.zeros((), dtype=torch.int64, device=u_init.device)
+        self.graph = graphs.Step("ddp LES step", self, u_init.device)
+
+    def __call__(self):
+        dt, nu, k1, u, v = self.dt, self.nu, self.k1, self.u, self.v
+        f = self.f_bar.index_select(0, self.k.view(1))[0]
+        pi_n = self.model.predict(u)
         F = k1 * spectral.fft(0.5 * u * u)
-        F0 = k1 * spectral.fft(0.5 * u_old * u_old)
-        rhs = (-0.5 * dt * (3.0 * F - F0) - 0.5 * dt * nu * (D2 * v) + v
+        F0 = k1 * spectral.fft(0.5 * self.u_old * self.u_old)
+        rhs = (-0.5 * dt * (3.0 * F - F0) - 0.5 * dt * nu * (self.D2 * v) + v
                + dt * spectral.fft(f)
-               - spectral.fft(dt * (1.5 * pi_n - 0.5 * pi_prev)))
-        v_new = rhs / D2x
+               - spectral.fft(dt * (1.5 * pi_n - 0.5 * self.pi_prev)))
+        v_new = rhs / self.D2x
         u_new = spectral.irfft_real(v_new)
-        u, v, u_old, pi_prev = u_new, v_new, u, pi_n
-        us.append(u_new)
-    return torch.stack(us, 0)
+        self.k.add_(1)
+        self.uu.index_copy_(0, self.k.view(1), u_new[None])
+        graphs.copy_((self.u, self.v, self.u_old, self.pi_prev), (u_new, v_new, u, pi_n))

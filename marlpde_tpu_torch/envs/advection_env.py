@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from marlpde_tpu_torch.core import ic
+from marlpde_tpu_torch.device import grid_array
 from marlpde_tpu_torch.envs import features
 from marlpde_tpu_torch.envs.diffusion_env import _keep, draw_offset
 from marlpde_tpu_torch.envs.rollout import Placement
@@ -79,7 +80,7 @@ def reset_at(cfg: AdvectionEnvConfig, offset):
     """``reset`` with the offsets (B,) given, in their dtype on their device."""
     assert cfg.ic_case == "sinus", "[advection_env] only sinus implemented (Advection.py:104-113)"
     B, dtype, device = offset.shape[0], offset.dtype, offset.device
-    x = torch.as_tensor(cfg.solver.grid.x, dtype=dtype, device=device)
+    x = grid_array(cfg.solver.grid, "x", dtype, device)
     u0 = ic.diffusion_sinus(offset[:, None], x, cfg.L)
     st = advection.init(cfg.solver, u0, offset=offset)
     state = AdvectionEnvState(

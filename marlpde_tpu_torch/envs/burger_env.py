@@ -294,7 +294,7 @@ def reset_at(cfg: BurgerEnvConfig, pool: DnsPool, offset, episode_counts):
     nu, rf1, rf2 = pool.nu[sidx], pool.randfac1[sidx], pool.randfac2[sidx]
     if cfg.spectral_reward:
         # spectral restriction + phase shift (burger_environment.py:110-112)
-        dns_k = torch.as_tensor(cfg.dns_solver.grid.k, dtype=dtype, device=device)
+        dns_k = grid_array(cfg.dns_solver.grid, "k", dtype, device)
         v0 = torch.complex(pool.v0_re[sidx], pool.v0_im[sidx])
         v0 = spectral.restrict_modes(spectral.phase_shift(v0, offset[:, None], dns_k),
                                      cfg.grid_size)
@@ -302,7 +302,7 @@ def reset_at(cfg: BurgerEnvConfig, pool: DnsPool, offset, episode_counts):
     else:
         # the truth's spline at the shifted coarse grid (burger_environment.py:114-119)
         newx = interp.shifted_query_points(
-            torch.as_tensor(lcfg.grid.x, dtype=dtype, device=device), offset[:, None], cfg.L)
+            grid_array(lcfg.grid, "x", dtype, device), offset[:, None], cfg.L)
         u0 = interp.periodic_spline_eval(pool.uu[sidx, 0], pool.spline_m[sidx, 0], newx,
                                          cfg.L)
         st = burger.init(lcfg, u0=u0, nu=nu, offset=offset, randfac1=rf1, randfac2=rf2)
@@ -485,7 +485,7 @@ def reset_lockstep_at(cfg: BurgerEnvConfig, nu, offset, rf1, rf2, episode_counts
     dtype, device = offset.dtype, offset.device
     dcfg, lcfg = cfg.dns_solver, cfg.les_solver
     g, B = cfg.grid_size, offset.shape[0]
-    x_d = torch.as_tensor(dcfg.grid.x, dtype=dtype, device=device)
+    x_d = grid_array(dcfg.grid, "x", dtype, device)
     if cfg.ic_case == "turbulence":
         u0_d = ic.burger_turbulence(cfg.seed + episode_counts.to(torch.int64), 0.0, x_d, cfg.L)
     elif cfg.ic_case == "sinus":
@@ -493,7 +493,7 @@ def reset_lockstep_at(cfg: BurgerEnvConfig, nu, offset, rf1, rf2, episode_counts
     else:
         u0_d = torch.zeros(B, cfg.N_dns, dtype=dtype, device=device)
     dns = burger.init(dcfg, u0=u0_d, nu=nu, randfac1=rf1, randfac2=rf2)
-    dns_k = torch.as_tensor(dcfg.grid.k, dtype=dtype, device=device)
+    dns_k = grid_array(dcfg.grid, "k", dtype, device)
     v0 = spectral.restrict_modes(spectral.phase_shift(dns.v, offset[:, None], dns_k), g)
     les = burger.init(lcfg, v0=v0, nu=nu, offset=offset, randfac1=rf1, randfac2=rf2)
     state = BurgerLockstepState(

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from marlpde_tpu_torch.core import ic
+from marlpde_tpu_torch.device import grid_array
 from marlpde_tpu_torch.envs import features
 from marlpde_tpu_torch.envs.rollout import Placement
 from marlpde_tpu_torch.solvers import diffusion
@@ -120,7 +121,7 @@ def reset(cfg: DiffusionEnvConfig, consts: Placement, generator, episode_counts)
 def reset_at(cfg: DiffusionEnvConfig, offset):
     """``reset`` with the offsets (B,) given, in their dtype on their device."""
     B, dtype, device = offset.shape[0], offset.dtype, offset.device
-    x = torch.as_tensor(cfg.solver.grid.x, dtype=dtype, device=device)
+    x = grid_array(cfg.solver.grid, "x", dtype, device)
     u0 = _ic_field(cfg, offset[:, None], x)
     st = diffusion.init(cfg.solver, u0, offset=offset)
     state = DiffusionEnvState(

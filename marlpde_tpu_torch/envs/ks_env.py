@@ -208,7 +208,7 @@ def reset_at(cfg: KSEnvConfig, pool: KSDnsPool, offset, episode_counts):
     dtype, device = pool.uu.dtype, pool.uu.device
     g = cfg.grid_size
     lcfg = cfg.les_solver
-    dns_k = torch.as_tensor(cfg.dns_solver.grid.k, dtype=dtype, device=device)
+    dns_k = grid_array(cfg.dns_solver.grid, "k", dtype, device)
     v0 = spectral.restrict_modes(spectral.phase_shift(pool.v0[sidx], offset[:, None], dns_k), g)
     st = ks.init(lcfg, v0=v0)
     B = sidx.shape[0]

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from marlpde_tpu_torch.core import ic
+from marlpde_tpu_torch.device import grid_array
 from marlpde_tpu_torch.envs.diffusion_env import _keep
 from marlpde_tpu_torch.envs.rollout import Placement
 from marlpde_tpu_torch.solvers import laplace
@@ -77,7 +78,7 @@ def reset_at(cfg: LaplaceEnvConfig, offset, r=None):
     """``reset`` with the offsets (B,) and, for the random forces, the
     uniform draws (B,) given."""
     B, dtype, device = offset.shape[0], offset.dtype, offset.device
-    x = torch.as_tensor(cfg.solver.grid.x, dtype=dtype, device=device)
+    x = grid_array(cfg.solver.grid, "x", dtype, device)
     u0 = ic.laplace_ic(cfg.ic_case, x).expand(B, -1).clone()
     force = ic.laplace_force(cfg.sforce, None if r is None else r[:, None],
                              offset[:, None], x, cfg.L).expand(B, -1).clone()

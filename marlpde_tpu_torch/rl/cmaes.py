@@ -26,6 +26,7 @@ import torch
 from marlpde_tpu_torch.core import interp
 from marlpde_tpu_torch.device import resolve_device
 from marlpde_tpu_torch.solvers import burger, closures
+from marlpde_tpu_torch.utils import graphs
 
 
 @dataclasses.dataclass
@@ -95,6 +96,33 @@ def cmaes_minimize(f: Callable[[np.ndarray], np.ndarray], cfg: CmaesConfig):
     return best_x, best_cost, history
 
 
+class _PopulationStep:
+    """One macro-step of the population's episodes, in place on the solver
+    state ``sol`` and the cumulative rewards ``cum`` (P,): ``n_int`` ABCN
+    sub-steps under the SSM forcing a = cs^2 dx^2 |du/dx| d2u/dx2 of each
+    row's ``cs`` (P,), then the reward against the DNS spline.  ``graph``
+    calls it, as a CUDA graph on the card (utils/graphs.py)."""
+
+    def __init__(self, lcfg, n_int, dt, x, L, uu, spline_m, sol, cs):
+        self.lcfg, self.n_int, self.dt, self.x, self.L = lcfg, n_int, dt, x, L
+        self.uu, self.spline_m, self.sol, self.cs = uu, spline_m, sol, cs
+        self.cum = torch.zeros_like(cs)
+        self.graph = graphs.Step("CMA-ES macro-step", self, cs.device)
+
+    def __call__(self):
+        dx = self.lcfg.grid.dx
+        scale = (self.cs**2 * dx**2)[:, None]
+        sol = self.sol
+        for _ in range(self.n_int):
+            dudx = closures.first_deriv_onesided(sol.u, dx)
+            d2udx2 = closures.second_deriv(sol.u, dx)
+            sol, _aux = burger.step(self.lcfg, sol, scale * torch.abs(dudx) * d2udx2)
+        fidx = interp.frame_index(sol.t, self.dt, self.uu.shape[0])
+        truth = interp.periodic_spline_eval(self.uu[fidx], self.spline_m[fidx], self.x, self.L)
+        graphs.copy_((self.sol, self.cum),
+                     (sol, self.cum - torch.mean((truth - sol.u) ** 2, dim=-1)))
+
+
 def make_burger_cs_objective(N_dns=512, grid_size=32, L=2 * np.pi, dt=1e-3,
                              T=5.0, nu=0.02, episode_length=500,
                              ic_case="turbulence", seed=42,
@@ -116,7 +144,6 @@ def make_burger_cs_objective(N_dns=512, grid_size=32, L=2 * np.pi, dt=1e-3,
     pool = burger_env.make_dns_pool(cfg, 1, dtype=dtype, device=device)
     uu, spline_m, row_nu = pool.uu[0], pool.spline_m[0], pool.nu[0]
     lcfg = cfg.les_solver
-    dx = lcfg.grid.dx
     n_int = cfg.n_intermediate
     x = torch.as_tensor(lcfg.grid.x, dtype=dtype, device=device)
     # cubic-interpolated IC from the DNS (burger_cmaes.py:31,40)
@@ -124,19 +151,25 @@ def make_burger_cs_objective(N_dns=512, grid_size=32, L=2 * np.pi, dt=1e-3,
 
     @torch.no_grad()
     def episodes(cs):
-        """The population's episodes, cs (P,) -> cumulative rewards (P,)."""
+        """The population's episodes, cs (P,) -> cumulative rewards (P,): on
+        the card ``episode_length`` replays of the macro-step's graph, kept
+        for this objective and P (the first call's first macro-step is the
+        capture's warm-up), elsewhere direct calls."""
         P = cs.shape[0]
         sol = burger.init(lcfg, u0=u0.expand(P, -1), nu=row_nu)
-        cum = torch.zeros(P, dtype=dtype, device=device)
-        scale = (cs**2 * dx**2)[:, None]
+        key, objects = ("cmaes", P), (uu,)
+        step = graphs.cached(key, objects) if graphs.enabled(device) else None
+        if step is None:
+            step = _PopulationStep(lcfg, n_int, dt, x, L, uu, spline_m, graphs.clone(sol),
+                                   cs.clone())
+            if step.graph.graphed:
+                graphs.store(key, objects, step)
+        else:
+            graphs.copy_((step.sol, step.cs), (sol, cs))
+            step.cum.zero_()
         for _ in range(episode_length):
-            for _ in range(n_int):
-                dudx = closures.first_deriv_onesided(sol.u, dx)
-                d2udx2 = closures.second_deriv(sol.u, dx)
-                sol, _aux = burger.step(lcfg, sol, scale * torch.abs(dudx) * d2udx2)
-            fidx = interp.frame_index(sol.t, dt, uu.shape[0])
-            truth = interp.periodic_spline_eval(uu[fidx], spline_m[fidx], x, L)
-            cum = cum - torch.mean((truth - sol.u) ** 2, dim=-1)
+            step.graph()
+        cum = step.cum
         return torch.where(torch.isfinite(cum), cum, torch.full_like(cum, -1e6))
 
     def f(xs: np.ndarray) -> np.ndarray:

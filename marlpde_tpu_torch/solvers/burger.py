@@ -92,6 +92,14 @@ def draw_forcing_tables(generator, stepper: int, dtype, batch=(), device=None):
             torch.randn(shape, generator=generator, dtype=dtype, device=device))
 
 
+def _per_env(x, batch, dtype, device):
+    """A tensor or a number as a (batch...) tensor; a number is filled on the
+    device, not copied from the host (a CUDA graph captures the fill)."""
+    x = (torch.as_tensor(x, dtype=dtype, device=device) if isinstance(x, torch.Tensor)
+         else torch.full((), x, dtype=dtype, device=device))
+    return x.expand(batch).clone()
+
+
 def init(cfg: BurgerConfig, u0=None, v0=None, *, nu=None, offset=0.0,
          randfac1=None, randfac2=None) -> BurgerState:
     """Build a solver state from a physical or spectral IC (Burger.py:205-320)."""
@@ -105,7 +113,7 @@ def init(cfg: BurgerConfig, u0=None, v0=None, *, nu=None, offset=0.0,
     if randfac1 is None:
         randfac1 = torch.zeros(batch + (4, cfg.stepper), dtype=dtype, device=device)
         randfac2 = torch.zeros(batch + (4, cfg.stepper), dtype=dtype, device=device)
-    k1 = torch.as_tensor(cfg.grid.k1, dtype=v0.dtype, device=device)
+    k1 = grid_array(cfg.grid, "k1", v0.dtype, device)
     nu = cfg.nu if nu is None else nu
     return BurgerState(
         u=u0,
@@ -113,8 +121,8 @@ def init(cfg: BurgerConfig, u0=None, v0=None, *, nu=None, offset=0.0,
         fn_old=k1 * spectral.fft(0.5 * u0 * u0),    # Burger.py:320
         t=torch.zeros(batch, dtype=dtype, device=device),
         ioutnum=torch.zeros(batch, dtype=torch.int64, device=device),
-        nu=torch.as_tensor(nu, dtype=dtype, device=device).expand(batch).clone(),
-        offset=torch.as_tensor(offset, dtype=dtype, device=device).expand(batch).clone(),
+        nu=_per_env(nu, batch, dtype, device),
+        offset=_per_env(offset, batch, dtype, device),
         randfac1=torch.as_tensor(randfac1, dtype=dtype, device=device),
         randfac2=torch.as_tensor(randfac2, dtype=dtype, device=device),
     )

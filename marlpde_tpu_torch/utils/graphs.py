@@ -21,7 +21,9 @@ A step that is captured obeys three rules:
 
 ``capture`` runs the step once for real on a side stream (the warm-up: the
 optimizer's state, cuBLAS and cuFFT plans, the kernels' libraries), then
-records it.  The hand-written kernels count their launches in Python, which a
+records it on that same stream.  Every capture of a device shares that one
+stream, so the process keeps one cuBLAS workspace for it (cuBLAS keeps one
+for each stream that runs a matmul).  The hand-written kernels count their launches in Python, which a
 replay skips: the capture records what each wrapper counted, puts the counters
 back, and every replay adds those numbers again.  Other counters that a
 step's Python advances join through ``count_per_replay`` (the mesh's
@@ -84,8 +86,16 @@ class CudaGraph:
         self.graph.register_generator_state(generator)
 
     def capture(self, fn):
-        with torch.cuda.device(self.device), torch.cuda.graph(self.graph):
-            return fn()
+        # capture_begin/_end on the shared stream, as torch.cuda.graph does,
+        # without its empty_cache (and, in some versions, gc.collect) before
+        # every capture, which costs more than a short step's replays save
+        torch.cuda.synchronize(self.device)
+        with torch.cuda.device(self.device), torch.cuda.stream(side_stream(self.device)):
+            self.graph.capture_begin()
+            try:
+                return fn()
+            finally:
+                self.graph.capture_end()
 
     def replay(self):
         self.graph.replay()
@@ -140,10 +150,22 @@ class StepGraph:
         return self.out
 
 
+# the side stream of each device that warm-ups and captures run on
+_SIDE: dict = {}
+
+
+def side_stream(device: torch.device):
+    """The side stream of ``device`` for warm-ups and captures."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _SIDE:
+        _SIDE[index] = torch.cuda.Stream(index)
+    return _SIDE[index]
+
+
 def _warm_up(fn, device: torch.device):
     if device.type != "cuda":
         return fn()
-    side = torch.cuda.Stream(device)
+    side = side_stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
         out = fn()
@@ -173,6 +195,45 @@ def capture(name: str, fn, device, generators=()):
         _set_counts(before)
     k = len(_COUNTED)
     return first, StepGraph(name, graph, out, per_replay[:k], per_replay[k:])
+
+
+class Step:
+    """The calls of one step ``fn``, which takes no arguments and works on
+    buffers that outlive it.  Where graphs are ``enabled`` on ``device`` (as
+    they were when the ``Step`` was made), the first call runs ``fn`` for
+    real and captures it (``capture``'s warm-up is that call) and every later
+    call replays the graph; elsewhere every call runs ``fn`` directly."""
+
+    def __init__(self, name: str, fn, device, generators=()):
+        self.name, self.fn, self.device = name, fn, torch.device(device)
+        self.generators = tuple(generators)
+        self.graphed = enabled(self.device)
+        self.graph = None
+
+    def __call__(self):
+        if not self.graphed:
+            self.fn()
+        elif self.graph is None:
+            self.graph = capture(self.name, self.fn, self.device, self.generators)[1]
+        else:
+            self.graph.replay()
+
+
+def adam(params, lr: float, eps: float = 1e-8) -> torch.optim.Adam:
+    """``torch.optim.Adam`` for a step that is captured: capturable on the
+    card (its step count and bias corrections on the device), with its step
+    count in the parameters' dtype, where capturable Adam would keep it in
+    float32 and round a float64 run's bias corrections to seven digits (the
+    plain Adam computes them in float64 on the host); the plain Adam on the
+    CPU, which capturable Adam does not take."""
+    params = list(params)
+    on_card = params[0].device.type == "cuda"
+    opt = torch.optim.Adam(params, lr=lr, eps=eps, capturable=on_card)
+    if on_card:
+        for p in params:
+            opt.state[p] = dict(step=torch.zeros((), dtype=p.dtype, device=p.device),
+                                exp_avg=torch.zeros_like(p), exp_avg_sq=torch.zeros_like(p))
+    return opt
 
 
 # the graphs kept, least recently used first: (key, ids, settings) -> (objects, value)
@@ -235,18 +296,24 @@ def pointers(tree) -> tuple:
     return tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in tensors(tree))
 
 
-def clone(tree):
-    """``tree`` with every tensor cloned into fresh, writable storage."""
+def tree_map(fn, tree):
+    """``tree`` with ``fn`` applied to each of its tensors, in the order of
+    ``tensors``."""
     if isinstance(tree, torch.Tensor):
-        return tree.clone(memory_format=torch.contiguous_format)
+        return fn(tree)
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
-        return dataclasses.replace(tree, **{f.name: clone(getattr(tree, f.name))
+        return dataclasses.replace(tree, **{f.name: tree_map(fn, getattr(tree, f.name))
                                             for f in dataclasses.fields(tree) if f.init})
     if isinstance(tree, dict):
-        return {k: clone(v) for k, v in tree.items()}
+        return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(clone(v) for v in tree)
+        return type(tree)(tree_map(fn, v) for v in tree)
     return tree
+
+
+def clone(tree):
+    """``tree`` with every tensor cloned into fresh, writable storage."""
+    return tree_map(lambda t: t.clone(memory_format=torch.contiguous_format), tree)
 
 
 @torch.no_grad()

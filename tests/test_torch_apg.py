@@ -2,12 +2,19 @@
 and its gradient, the training loop with its own clip + Adam and the
 incumbent-best copy) against the JAX package on the burger-jax preset in
 float64, from the same weights carried across by ``networks.params_from_flax``;
-then the port of tests/test_apg.py's learning check.
+then the port of tests/test_apg.py's learning check.  The graphed path
+(``Bptt``'s four steps as CUDA graphs on the card) runs here through
+tests/graph_standins.py: bit for bit against direct calls, and against
+JAX; the reverse scan's gradient against the checkpointed one; a second
+ApgConfig on the same objects gets its own graphs (fault F1); every env's
+reset, which ``Bptt.begin`` captures, under the capture rules.
 
 The resets draw nothing at noise 0, so both packages run the same episodes.
 Tolerances: 1e-8 relative to each tensor's max |value| against JAX (the same
 float64 math; Adam's update is written in another order), 1e-12 between the
-checkpointed and the plain backward pass of the port (one program)."""
+checkpointed and the plain backward pass of the port (one program), 1e-10
+between the reverse scan and the checkpointed pass (the gradients summed in
+another order)."""
 
 import jax
 import jax.numpy as jnp
@@ -24,7 +31,10 @@ from marlpde_tpu_torch.rl import apg as tapg
 from marlpde_tpu_torch.rl import networks as tnet
 from marlpde_tpu_torch.rl import vracer as tv
 from marlpde_tpu_torch.train import trainer as ttrainer
+from marlpde_tpu_torch.utils import graphs
 from test_torch_interop import train_state_from_jax
+
+import graph_standins as standins
 
 torch.set_num_threads(1)
 REL = 1e-8
@@ -153,3 +163,132 @@ def test_return_is_differentiable_and_improves():
     assert last > first
     assert (last - first) > 0.2 * abs(first)
     assert isinstance(ts, tv.TrainState)
+
+
+# ------------------------------------------------------------- the graphed path
+# On the card ``train_apg`` replays CUDA graphs of Bptt's four steps
+# (utils/graphs.py); here tests/graph_standins.py's Replayed stands in for
+# them: each replay runs the step under rules that refuse what a capture
+# refuses and must repeat the first replay's operations.
+
+OVERSHOOT = dict(iterations=3, batch_size=2, lr=0.5, max_grad_norm=1.0)
+
+
+def _bptt_run(tenv, tcfg, ts, cfg, iterations):
+    """A Bptt of ``cfg`` run ``iterations`` times from ``ts``: its state after
+    (returns, parameters, incumbent, Adam's state, the generator's state)."""
+    g = torch.Generator().manual_seed(4)
+    bptt = tapg.Bptt(tenv, tcfg, ts, tapg.ApgConfig(**cfg), tenv.consts, g)
+    outs = []
+    for _ in range(iterations):
+        bptt.iteration()
+        outs.append(bptt.out.clone())
+    state = [v.clone() for s in bptt.opt.state.values() for v in s.values()]
+    return ([*outs, *[p.detach().clone() for p in bptt.params], *bptt.best, bptt.best_ret,
+             *state], g.get_state())
+
+
+@pytest.mark.parametrize("mu_param", ["absolute", "sigma_relative"])
+def test_graphed_training_gives_the_direct_bits_and_matches_jax(mu_param, monkeypatch):
+    """Three iterations whose return falls after the first update, so the
+    incumbent stays behind: the graphed Bptt steps give the bits of direct
+    calls (returns, parameters, incumbent, Adam's state, generator), and the
+    graphed ``train_apg`` the JAX package's history and incumbent."""
+    jenv, jcfg, jts, tenv, tcfg, ts = _setup(scale=0.3, mu_param=mu_param)
+    start = [p.detach().clone() for p in ts.net.parameters()]
+    direct, g_direct = _bptt_run(tenv, tcfg, ts, OVERSHOOT, 3)
+    with torch.no_grad():
+        for p, s in zip(ts.net.parameters(), start):
+            p.copy_(s)
+    standins.use(monkeypatch, standins.Replayed)
+    graphed, g_graphed = _bptt_run(tenv, tcfg, ts, OVERSHOOT, 3)
+    assert len(graphed) == len(direct)
+    assert all(torch.equal(a, b) for a, b in zip(graphed, direct))
+    assert torch.equal(g_graphed, g_direct)
+
+    with torch.no_grad():
+        for p, s in zip(ts.net.parameters(), start):
+            p.copy_(s)
+    jts2, jhist = japg.train_apg(jenv, jcfg, japg.ApgConfig(**OVERSHOOT), key=jax.random.key(2),
+                                 init_ts=jts, verbose=False)
+    ts2, hist = tapg.train_apg(tenv, tcfg, tapg.ApgConfig(**OVERSHOOT),
+                               generator=torch.Generator(), init_ts=ts, verbose=False)
+    assert hist["iter"] == [0, 1, 2]
+    for k in ("mean_return", "best_return"):
+        assert _rel(hist[k], jhist[k]) < REL, k
+    assert hist["mean_return"][1] < hist["best_return"][1] == hist["mean_return"][0]
+    want = tnet.params_from_flax(jax.tree.map(np.asarray, jts2.params))
+    for name, p in ts2.net.named_parameters():
+        assert _rel(p.detach().numpy(), want[name].numpy()) < REL, name
+        assert torch.equal(p, start[[n for n, _ in ts.net.named_parameters()].index(name)])
+
+
+@pytest.mark.parametrize("mu_param", ["absolute", "sigma_relative"])
+def test_the_reverse_scan_gives_the_checkpointed_gradient(mu_param):
+    """Bptt's forward tape and reverse VJPs against ``episode_return`` under
+    ``torch.utils.checkpoint`` and autograd's backward pass (float64): the
+    same return bit for bit, the gradients at 1e-10 (summed in another
+    order), both of minus the return as ``train_apg`` descends it."""
+    *_, tenv, tcfg, ts = _setup(scale=0.3, mu_param=mu_param)
+    ts.net.zero_grad(set_to_none=True)
+    r = tapg.episode_return(tenv, tcfg, ts, tenv.consts, torch.Generator(), 0, 3)
+    (-r).backward()
+    want = _grads(ts)
+    bptt = tapg.Bptt(tenv, tcfg, ts, tapg.ApgConfig(batch_size=3), tenv.consts,
+                     torch.Generator())
+    bptt.steps["begin"]()
+    for _ in range(bptt.T):
+        bptt.steps["forward"]()
+    for _ in range(bptt.T):
+        bptt.steps["vjp"]()
+    assert torch.mean(bptt.acc).item() == r.item()
+    for (name, p), g in zip(ts.net.named_parameters(), bptt.grads):
+        assert np.abs(g.numpy() - want[name]).max() <= 1e-10 * max(np.abs(want[name]).max(),
+                                                                    1e-300), name
+        assert p.grad is g
+    assert np.abs(want["mu.weight"]).max() > 0
+
+
+@pytest.mark.parametrize("change", [dict(lr=0.2), dict(max_grad_norm=0.3), dict(batch_size=3)],
+                         ids=["lr", "clip", "batch"])
+def test_a_second_apg_config_gets_its_own_graph(change, monkeypatch):
+    """Fault F1's rule: a graph never serves a step whose by-value inputs
+    differ from its capture's.  ``train_apg`` captures a ``Bptt`` of its own
+    each call, so graphed runs of two ApgConfigs on the same net, env and
+    generator each give the bits of their own direct run."""
+    *_, tenv, tcfg, ts = _setup(scale=0.3)
+    start = [p.detach().clone() for p in ts.net.parameters()]
+    cfgs = [tapg.ApgConfig(**OVERSHOOT), tapg.ApgConfig(**dict(OVERSHOOT, **change))]
+
+    def run(cfg, g):
+        with torch.no_grad():
+            for p, s in zip(ts.net.parameters(), start):
+                p.copy_(s)
+        _, hist = tapg.train_apg(tenv, tcfg, cfg, generator=g, init_ts=ts, verbose=False)
+        return hist, [p.detach().clone() for p in ts.net.parameters()]
+
+    direct = [run(cfg, torch.Generator()) for cfg in cfgs]
+    standins.use(monkeypatch, standins.Replayed)
+    g = torch.Generator()
+    graphed = [run(cfg, g) for cfg in cfgs]
+    assert direct[0][0] != direct[1][0]
+    for (dh, dp), (gh, gp) in zip(direct, graphed):
+        assert gh == dh and all(torch.equal(a, b) for a, b in zip(gp, dp))
+
+
+@pytest.mark.parametrize("name", ["burger-jax", "burger", "burger-fd", "coupled-burger",
+                                  "burger-lockstep", "ks", "diffusion-simple", "diffusion-error",
+                                  "diffusion-stencil3", "advection-simple", "laplace"])
+def test_every_env_resets_under_the_capture_rules(name):
+    """Bptt's ``begin`` captures the resets on the card: after a first reset
+    (the capture's warm-up, which fills the constants' caches) every env's
+    reset makes no host copy or readback."""
+    kw = dict(KW) if name.startswith(("burger", "coupled")) else dict(episode_length=5)
+    if name == "ks":
+        kw = dict(N_dns=64, grid_size=16, num_actions=16, episode_length=5)
+    env = treg.make_env(name, dtype=torch.float64, device="cpu", **kw)
+    counts = torch.arange(3)
+    want = env.reset(env.consts, torch.Generator().manual_seed(1), counts)
+    with standins.CaptureRules():
+        got = env.reset(env.consts, torch.Generator().manual_seed(1), counts)
+    assert all(torch.equal(a, b) for a, b in zip(graphs.tensors(got), graphs.tensors(want)))

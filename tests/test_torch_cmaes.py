@@ -7,7 +7,10 @@ Tolerances: the CMA-ES history bit for bit (the same numpy code and
 float64 (the same ABCN episodes on torch.fft and jnp.fft); the CLI, whose
 episodes are float32 in both packages, the same keys, generations and best
 cs bits where the float32 costs order the population alike (the seeds
-below), the best objective to 1e-5 relative (float32 sums of MSE rewards)."""
+below), the best objective to 1e-5 relative (float32 sums of MSE rewards).
+The graphed objective (one CUDA graph a macro-step on the card) runs here
+through tests/graph_standins.py, bit for bit against direct calls, with its
+own graph for each population size (fault F1)."""
 
 import contextlib
 import io
@@ -22,6 +25,9 @@ from marlpde_tpu import run as jrun
 from marlpde_tpu.rl import cmaes as jcmaes
 from marlpde_tpu_torch import run as trun
 from marlpde_tpu_torch.rl import cmaes as tcmaes
+from marlpde_tpu_torch.utils import graphs
+
+import graph_standins as standins
 
 torch.set_num_threads(1)
 OBJ = dict(N_dns=64, grid_size=16, dt=0.01, T=0.2, nu=0.05, episode_length=10,
@@ -89,3 +95,39 @@ def test_cmaes_cli_matches_jax(extra, tmp_path, monkeypatch):
     assert got["best_cs"] == want["best_cs"] and 0.0 <= got["best_cs"] <= 1.0
     assert abs(got["best_objective"] - want["best_objective"]) <= 1e-5 * abs(want["best_objective"])
     assert list(tmp_path.iterdir()) == []
+
+
+def test_graphed_objective_gives_the_direct_bits_and_matches_jax(monkeypatch):
+    """On the card the objective replays one graph per macro-step
+    (utils/graphs.py); tests/graph_standins.py's Replayed stands in for it
+    here.  Three cs, the last of which blows up (cost 1e6): the graphed
+    objective gives the direct bits, over two generations of one capture, and
+    the JAX package's costs at 1e-10."""
+    xs = np.array([[0.2], [0.9], [10.0]])
+    want = jcmaes.make_burger_cs_objective(dtype=jnp.float64, **OBJ)(xs)
+    direct = tcmaes.make_burger_cs_objective(dtype=torch.float64, device="cpu", **OBJ)
+    d = [direct(xs), direct(xs[::-1].copy())]
+    standins.use(monkeypatch, standins.Replayed)
+    graphed = tcmaes.make_burger_cs_objective(dtype=torch.float64, device="cpu", **OBJ)
+    got = [graphed(xs), graphed(xs[::-1].copy())]
+    assert all(np.array_equal(a, b) for a, b in zip(got, d))
+    assert np.array_equal(got[1], got[0][::-1])
+    assert got[0][2] == want[2] == 1e6 and np.isfinite(got[0][:2]).all()
+    assert np.abs(got[0] - want).max() <= 1e-10 * np.abs(want[:2]).max()
+
+
+def test_a_second_population_size_gets_its_own_graph(monkeypatch):
+    """Fault F1's rule: the population size is in the graph's key.  One
+    objective evaluated graphed at 3, then 2, then 3 candidates gives the
+    bits of its direct evaluations, from two captures."""
+    xss = [np.array([[0.2], [0.5], [0.8]]), np.array([[0.3], [0.7]]),
+           np.array([[0.1], [0.4], [0.6]])]
+    direct = tcmaes.make_burger_cs_objective(dtype=torch.float64, device="cpu", **OBJ)
+    want = [direct(xs) for xs in xss]
+    standins.use(monkeypatch, standins.Replayed)
+    before = graphs.replays
+    graphed = tcmaes.make_burger_cs_objective(dtype=torch.float64, device="cpu", **OBJ)
+    got = [graphed(xs) for xs in xss]
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    # the first macro-step of each capture is its warm-up, not a replay
+    assert graphs.replays - before == 3 * OBJ["episode_length"] - 2

@@ -10,7 +10,9 @@ tests/test_ddp.py::TestPipelineScale on the port, with its own limits.
 Tolerances, relative to each tensor's max |value|: 1e-10 for the data path
 (the same float64 math on torch.fft and jnp.fft), 1e-8 after training and
 over the 50-step rollout (Adam's update in another order, amplified by the
-steps); frozen layers bit for bit."""
+steps); frozen layers bit for bit.  The graphed loops (a CUDA graph per DNS
+forcing block, per training epoch, per LES step on the card) run here
+through tests/graph_standins.py, bit for bit against direct calls."""
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +23,9 @@ import torch
 from marlpde_tpu.ddp import pipeline as jp
 from marlpde_tpu_torch.ddp import pipeline as tp
 from marlpde_tpu_torch.solvers import closures as tclosures
+from marlpde_tpu_torch.utils import graphs
+
+import graph_standins as standins
 
 torch.set_num_threads(1)
 REL = 1e-10
@@ -260,3 +265,80 @@ def test_pipeline_at_the_reference_scale():
     uu = tp.aposteriori_rollout(model, cfg, u_bar[start], u_bar[start - 1], f_bar[start:], n_roll)
     assert uu.shape == (n_roll + 1, 128) and torch.isfinite(uu).all()
     assert uu.abs().max().item() < 50.0
+
+
+# ------------------------------------------------------------- the graphed path
+# On the card generate_dns, train_closure and aposteriori_rollout each replay
+# one CUDA graph of their loop's body (utils/graphs.py); here
+# tests/graph_standins.py's Replayed stands in for it: each replay runs the
+# body under rules that refuse what a capture refuses and must repeat the
+# first replay's operations.
+
+
+def _graphed(monkeypatch, fn):
+    """``fn()`` directly, then with the graphs' stand-in."""
+    direct = fn()
+    with monkeypatch.context() as m:
+        standins.use(m, standins.Replayed)
+        before = graphs.replays
+        graphed = fn()
+        replays = graphs.replays - before
+    return direct, graphed, replays
+
+
+def test_graphed_dns_gives_the_direct_bits_and_matches_jax(monkeypatch):
+    jcfg, tcfg = jp.DdpConfig(**SMALL), tp.DdpConfig(**SMALL)
+    x = np.linspace(0.0, jcfg.L, jcfg.N, endpoint=False)
+    u0 = np.sin(2.0 * np.pi * 2.0 * x / jcfg.L + 0.7)
+    key = jax.random.key(3)
+    JU, JF = jp.generate_dns(jcfg, 130, key, u0=jnp.asarray(u0))
+    direct, graphed, replays = _graphed(monkeypatch, lambda: tp.generate_dns(
+        tcfg, 130, u0=_t(u0), draws=_block_draws(key, 130, tcfg.s), dtype=torch.float64,
+        device="cpu"))
+    # six blocks: the first is the capture's warm-up
+    assert replays == 5
+    for d, g, j in zip(direct, graphed, (JU, JF)):
+        assert g.shape == (121, 128) and torch.equal(g, d) and _rel(g.numpy(), j) < REL
+
+
+def test_graphed_transfer_epoch_gives_the_direct_bits_and_matches_jax(monkeypatch):
+    """One frozen-layer transfer epoch (Dense_0-5 frozen) of two steps: the
+    frozen layers bit for bit, the graphed epoch the direct bits, the
+    trained layers JAX's at the training tolerance; then two more epochs
+    replay the one capture."""
+    n = 16
+    x, y = _data(64, n)
+    jnet, params, tnet = _nets(n)
+    jmask = jp.transfer_mask(params)
+    key = jax.random.key(1)
+    for epochs in (1, 3):
+        jm = jp.train_closure(jnp.asarray(x), jnp.asarray(y), key, epochs=epochs,
+                              batch_size=32, net=jnet, params=params, trainable_mask=jmask)
+        direct, graphed, replays = _graphed(monkeypatch, lambda: tp.train_closure(
+            _t(x), _t(y), epochs=epochs, batch_size=32, net=tnet,
+            trainable_mask=tp.transfer_mask(tnet), perms=_perms(key, epochs, 64)))
+        assert replays == epochs - 1
+        want = tp.params_from_flax(jax.tree.map(np.asarray, jm.params))
+        for i, (before, d, g) in enumerate(zip(tnet.dense, direct.net.dense, graphed.net.dense)):
+            for k in ("weight", "bias"):
+                a, b = getattr(d, k), getattr(g, k)
+                assert torch.equal(a, b)
+                assert torch.equal(b, getattr(before, k)) == (i < 6)
+                assert _rel(b.detach().numpy(), want[f"dense.{i}.{k}"].numpy()) < REL_TRAIN
+
+
+def test_graphed_rollout_gives_the_direct_bits_and_matches_jax(monkeypatch):
+    cfg = tp.DdpConfig(**SMALL)
+    jm, tm = _model_pair(cfg.n_les, seed=2)
+    xg = np.linspace(0, cfg.L, cfg.n_les, endpoint=False)
+    rng = np.random.default_rng(5)
+    u0 = 0.5 * np.sin(2 * np.pi * 2 * xg / cfg.L) + 0.05 * rng.standard_normal(cfg.n_les)
+    u_prev = u0 + 0.01 * rng.standard_normal(cfg.n_les)
+    fseq = 1e-3 * rng.standard_normal((60, cfg.n_les))
+    want = jp.aposteriori_rollout(jm, jp.DdpConfig(**SMALL), jnp.asarray(u0),
+                                  jnp.asarray(u_prev), jnp.asarray(fseq), 50)
+    direct, graphed, replays = _graphed(monkeypatch, lambda: tp.aposteriori_rollout(
+        tm, cfg, _t(u0), _t(u_prev), _t(fseq), 50))
+    assert replays == 49
+    assert graphed.shape == (51, cfg.n_les) and torch.equal(graphed, direct)
+    assert _rel(graphed.numpy(), want) < REL_TRAIN
