@@ -39,7 +39,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    launches per macro-step and per update and the device's busy share of
    the collection and of the updates on both graphed paths; then a graphed resume through the CLI
    (run-918 flags: two generations straight against one, a checkpoint with
-   the replay, --resume and one more), held bit for bit;
+   the replay, --resume and one more), held bit for bit; and a capture whose
+   step drops an old graph into a reference cycle, with the garbage
+   collector at a threshold of one allocation (graphs.capture holds the
+   collector off: a graph freed during a capture invalidates it);
 6. [cli] the run-918 flagship through ``python -m marlpde_tpu_torch.run``'s
    ``main`` (experience mode, korali's ledger, testing, checkpoints,
    diagnostics) for 5 generations, then ``--resume`` for a 6th, in a fresh
@@ -119,6 +122,18 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    (both minibatch modes, train states equal bit for bit across the ranks,
    the DCP checkpoint restored on each), then the run-918 flags at 5 envs a
    rank for 2 generations (RUN_MESH2), each rank launching both kernels.
+22. [lockstep] run 918 (scripts/torch_lockstep.py: the CLI's flags at full
+   width from the JAX package's seed-42 weights, 5 generations, the 5th with
+   korali's 2500 updates) eagerly on the card, fed the action noise and
+   minibatch draws of the tape that the JAX package's CPU run in
+   scripts/lockstep_918.npz took, and held against that run: generations
+   1-4 (no updates: returns, ep_len, cursor, blow-ups and replay rows)
+   within the script's TOL_COLLECT (1e-3), its first FIRST_UPDATES (10)
+   updates within TOL_FIRST_UPDATES (2e-3), and the gap of each of the
+   first 200 updates printed beside the port's CPU float32 run's (the
+   npz's yardstick), with the first update at which the card's gap
+   exceeds 10 times the CPU's; both kernels launch on this path, and the
+   port's generator never moves.
 
 The [kernels] phase also holds the MLP kernel at the [simple] shapes of all
 five presets, at obs 128/256 with widths 128/256 (WIDE_INPUTS) and at the
@@ -135,8 +150,8 @@ their loops' bodies, and a replay adds to
 each kernel's count the launches its capture saw.  Launch counts are set to 0 just before each path and read
 just after; the comparisons of a kernel with its plain version are not
 counted.  The
-flagship Burgers paths (main, cli, cli_w256, cli_test, mesh, mesh2; mesh2's
-counts are its ranks' summed) must launch both kernels; the paths ks,
+flagship Burgers paths (main, cli, cli_w256, cli_test, mesh, mesh2, lockstep;
+mesh2's counts are its ranks' summed) must launch both kernels; the paths ks,
 ks_test, fd, fd_test, variants, simple, simple_test, bf16 and apg the MLP
 kernel and never the ABCN kernel: their configs run the
 general per-env env on torch.fft or have no Burgers solver, as in the JAX
@@ -664,6 +679,66 @@ def phase_breakdown(env, ts, rep, rl_cfg):
           f"{t_update:.3f} s (graph replays)")
 
 
+def _lockstep_module():
+    """scripts/torch_lockstep.py of this checkout, as a module."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        "torch_lockstep.py")
+    spec = importlib.util.spec_from_file_location("torch_lockstep", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_lockstep(dev, smi):
+    """Run 918 on the card in lockstep with the JAX package's CPU run of
+    scripts/lockstep_918.npz; returns the kernels' launches on this path."""
+    import numpy as np
+    from marlpde_tpu_torch.kernels import abcn, mlp
+
+    L = _lockstep_module()
+    with np.load(L.NPZ) as d:
+        ref = {k: d[k] for k in d.files}
+    meta = json.loads(str(ref["meta"]))
+    check(any(k.startswith("cpu/") for k in ref), f"{L.NPZ} holds no CPU float32 yardstick")
+    argv = meta["argv"] + ["--seed", str(meta["weights_seed"])]
+    abcn.launches = 0
+    mlp.launches = 0
+    arrays, env, seconds = L.torch_run(argv, L.weights_918(meta["weights_seed"]), device=dev,
+                                       **L.run_kwargs(meta))
+    launches = dict(abcn_macro_step=abcn.launches, mlp_forward=mlp.launches)
+    got = L.strip(arrays, "torch")
+    report = L.compare_918(got, ref)
+    s = report["summary"]
+    T = env.episode_length
+    print(f"[lockstep] ({smi}) run 918 at full width, {meta['generations']} generations "
+          f"(weights seed {meta['weights_seed']}, tape seed {meta['tape_seed']}, "
+          f"{meta['dtype']}) eagerly on the card in {seconds:.1f} s; launches {launches}; "
+          f"draws {s['draws']} (card, JAX); generator unmoved {s['generator_unmoved']}")
+    print(f"[lockstep] generations 1-4 against JAX: worst gap {s['collect_worst']:.3e} "
+          f"({s['collect_worst_key']}; tolerance {s['collect_tol']:g}); "
+          + ", ".join(f"{k} {v:.3e}" for k, v in report["fill"].items()))
+    print(f"[lockstep] generation 5: returns {got['gen/mean_return'].tolist()} (card), "
+          f"{ref['jax/gen/mean_return'].tolist()} (JAX), updates {got['gen/n_upd'].tolist()}; "
+          f"gaps {json.dumps(s['gen5'])}; final state worst {s['final_worst']:.3e} "
+          f"({s['final_worst_key']})")
+    yard = report["yardstick"]
+    every = 10
+    print(f"[lockstep] update-by-update gap (largest gap of its loss terms), every "
+          f"{every}th of the first {len(report['per_update'])}: card "
+          + " ".join(f"{x:.1e}" for x in report["per_update"][::every])
+          + "; CPU float32 " + " ".join(f"{x:.1e}" for x in yard[::every]))
+    print(f"[lockstep] first {s['first_updates']} updates worst {s['first_updates_worst']:.3e} "
+          f"(tolerance {s['first_updates_tol']:g}); first update where the card's gap exceeds "
+          f"10x the CPU's: {s['first_update_over_10x_cpu']}")
+    check(launches["abcn_macro_step"] == meta["generations"] * T,
+          f"lockstep: abcn launched {launches['abcn_macro_step']} times")
+    check(launches["mlp_forward"] >= meta["generations"] * T,
+          f"lockstep: mlp launched {launches['mlp_forward']} times")
+    check(s["ok"], f"lockstep: the card parts from the JAX package's run: {json.dumps(s)}")
+    return launches
+
+
 def phase_f2(dev):
     """Fault F2's op on the card against the CPU: the policy's log-probability
     takes both tails of the clipped normal through ``distributions.log_ndtr``
@@ -827,6 +902,44 @@ def _update_chunk(k):
         trainer.UPDATE_CHUNK = real
 
 
+def _capture_beside_garbage(dev):
+    """A step that drops an old graph into a reference cycle and then makes
+    the allocations that start a collection, captured with the collector at
+    a threshold of one: the old graph is freed after the capture, not inside
+    it, where its destruction would invalidate the capture."""
+    import gc
+
+    import torch
+    from marlpde_tpu_torch.utils import graphs
+
+    x = torch.zeros(1024, device=dev)
+
+    def step():
+        x.add_(1.0)
+
+    old = [graphs.capture("old step", step, dev)[1] for _ in range(2)]
+
+    def dropping():
+        step()
+        cycle = {"graph": old.pop()}
+        cycle["self"] = cycle
+        del cycle
+        _ = [[i] for i in range(1000)]
+        step()
+
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        graph = graphs.capture("step dropping an old graph", dropping, dev)[1]
+    finally:
+        gc.set_threshold(*thresholds)
+    graph.replay()
+    torch.cuda.synchronize()
+    check(x[0].item() == 6.0, f"[graphs] the step beside garbage: {x[0].item()}")
+    print("[graphs] a capture whose step drops an old graph into a reference cycle, the "
+          "collector at threshold 1: captured and replayed")
+
+
 def phase_graphs(env_flagship, workdir):
     """The training path's CUDA graphs against the step functions called
     directly, on the card: for run-918 (experience mode, both kernels), the
@@ -843,6 +956,7 @@ def phase_graphs(env_flagship, workdir):
     from marlpde_tpu_torch.train import trainer
     from marlpde_tpu_torch.utils import graphs
 
+    _capture_beside_garbage(env_flagship.device)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip().splitlines()[0]
     configs = []
@@ -2755,6 +2869,8 @@ def main() -> int:
     mark("small")
     phase_f2(dev)
     mark("f2")
+    launches_lockstep = phase_lockstep(dev, smi)
+    mark("lockstep")
     del ts, rep
     here = os.getcwd()
     with tempfile.TemporaryDirectory() as workdir:
@@ -2826,14 +2942,15 @@ def main() -> int:
                    fd=launches_fd, fd_test=launches_fd_test, variants=launches_variants,
                    simple=launches_simple, simple_test=launches_simple_test,
                    bf16=launches_bf16, apg=launches_apg, cmaes=launches_cmaes,
-                   ddp=launches_ddp, mesh=launches_mesh, mesh2=launches_mesh2)
+                   ddp=launches_ddp, mesh=launches_mesh, mesh2=launches_mesh2,
+                   lockstep=launches_lockstep)
     # the flagship Burgers paths run both kernels; KS has its own solver, the
     # other Burgers configs run the general per-env env (torch.fft), and the
     # diffusion, advection and Laplace envs have no Burgers solver: the MLP
     # kernel only.  APG differentiates the module and acts through the kernel
     # in its --test stage; CMA-ES and the ddp pipeline have no VRACER policy
     # and run their own ABCN loops on torch.fft: neither kernel
-    burgers = ("main", "cli", "cli_w256", "cli_test", "mesh", "mesh2")
+    burgers = ("main", "cli", "cli_w256", "cli_test", "mesh", "mesh2", "lockstep")
     no_policy = ("cmaes", "ddp")
     for k in kernels:
         k["launches"] = launches_cli[k["name"]]

@@ -261,7 +261,7 @@ def make_sharded_generation(env: Env, rl_cfg: vracer.VracerConfig, mesh: Mesh,
         return ts, rep, stats(traj, final, replay_mod.num_experiences(rep))
 
     def init_replay_shard():
-        kw = dict(dtype=env.dtype, device=mesh.device)
+        kw = dict(dtype=trainer.REPLAY_DTYPE, device=mesh.device)
         if exp_mode:
             return replay_flat.init_flat(flat_cap, flat_ep_cap, env.num_agents, env.obs_dim,
                                          env.act_dim, **kw)

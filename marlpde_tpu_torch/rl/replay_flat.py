@@ -40,6 +40,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from marlpde_tpu_torch.rl import running_stats
+
 
 @dataclasses.dataclass
 class FlatReplay:
@@ -301,7 +303,8 @@ def refresh_retrace(rep: FlatReplay, g, T_window: int, gamma, scale,
 
     sv_w = torch.where(val, rep.sv[ws], torch.zeros((), dtype=rep.sv.dtype, device=g.device))
     r_w = torch.where(val, rep.rewards[ws], torch.zeros((), dtype=rep.sv.dtype, device=g.device))
-    r_w = torch.clamp(torch.clamp(r_w, min=reward_floor) / scale, min=scaled_floor)
+    r_w = torch.clamp(torch.clamp(running_stats.promoted(r_w, scale), min=reward_floor) / scale,
+                      min=scaled_floor)
     rho_w = torch.where(val, rep.rho[ws], torch.ones((), dtype=rep.sv.dtype, device=g.device))
     rho_bar = torch.clamp(rho_w, max=1.0)
 

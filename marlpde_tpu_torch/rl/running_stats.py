@@ -55,9 +55,20 @@ def normalize(rs: RunningStats, x):
     return (x - rs.mean) / rs.std
 
 
+def promoted(x, scalar):
+    """``x`` in the dtype JAX gives ``x`` combined with ``scalar``: a 0-d
+    float64 tensor (the reward scale) widens a float32 array there, where
+    torch leaves a 0-d tensor out of its type promotion.  The float32 replay
+    of a float64 run meets the float64 reward normalizer this way."""
+    if torch.is_tensor(scalar):
+        return x.to(torch.promote_types(x.dtype, scalar.dtype))
+    return x
+
+
 def scale(rs: RunningStats, x):
     """Reward rescaling: divide by running std, no centering (korali behavior)."""
-    return x / rs.std
+    std = rs.std
+    return promoted(x, std) / std
 
 
 def second_moment(rs: RunningStats):

@@ -371,8 +371,10 @@ def _sanitized_final_V(cfg: VracerConfig, ts: TrainState, final_obs):
 
 def _rescale_rewards(cfg: VracerConfig, rewards, scale):
     """Floor, divide by the reward-rescaling sigma, bound in scaled units, and
-    pool to the team mean under Cooperation (vracer.py:479-487)."""
-    rewards = torch.clamp(rewards, min=cfg.reward_floor) / scale
+    pool to the team mean under Cooperation (vracer.py:479-487).  Rewards read
+    from the float32 replay divide by a float64 scale in float64, as in JAX
+    (``running_stats.promoted``)."""
+    rewards = torch.clamp(running_stats.promoted(rewards, scale), min=cfg.reward_floor) / scale
     rewards = torch.clamp(rewards, min=cfg.scaled_reward_floor)
     if cfg.multi_agent_relationship == "cooperation":
         rewards = rewards.mean(-1, keepdim=True).expand(rewards.shape)

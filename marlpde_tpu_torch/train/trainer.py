@@ -47,6 +47,9 @@ from marlpde_tpu_torch.utils.profiling import Throughput
 # updates in one graph of ``run_updates``: the JAX package's UPDATE_CHUNK
 # (marlpde_tpu/train/trainer.py:32), its updates in one compiled scan
 UPDATE_CHUNK = 50
+# the replays' dtype in every run (marlpde_tpu/rl/replay.py:52-53,
+# replay_flat.py:87-88 and the trainer's and mesh's calls without a dtype)
+REPLAY_DTYPE = torch.float32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,15 +96,15 @@ def make_replay(env: Env, rl_cfg: vracer.VracerConfig):
     """The trainer's replay layout, on the env's device (also the template a
     checkpointed replay loads into): the episode-slot ring for episode
     minibatches, the flat experience ring with korali's REFER metadata for
-    experience minibatches."""
-    device, dtype = env.device, env.dtype
+    experience minibatches.  In float32 whatever the env's dtype, as in the
+    JAX package (its replays' default dtype): a float64 run stores its rows
+    rounded to float32."""
+    kw = dict(dtype=REPLAY_DTYPE, device=env.device)
     if rl_cfg.minibatch_mode == "experience":
         return replay_flat.init_flat(rl_cfg.replay_max_experiences, rl_cfg.flat_episode_capacity,
-                                     env.num_agents, env.obs_dim, env.act_dim,
-                                     dtype=dtype, device=device)
+                                     env.num_agents, env.obs_dim, env.act_dim, **kw)
     return replay_mod.init(rl_cfg.replay_capacity_episodes, env.episode_length,
-                           env.num_agents, env.obs_dim, env.act_dim,
-                           dtype=dtype, device=device)
+                           env.num_agents, env.obs_dim, env.act_dim, **kw)
 
 
 def updates_per_generation(rl_cfg: vracer.VracerConfig, tc: TrainerConfig,

@@ -21,7 +21,10 @@ A step that is captured obeys three rules:
 
 ``capture`` runs the step once for real on a side stream (the warm-up: the
 optimizer's state, cuBLAS and cuFFT plans, the kernels' libraries), then
-records it on that same stream.  Every capture of a device shares that one
+records it on that same stream, with Python's cyclic garbage collector held
+off: a step and its ``Step`` often form a reference cycle, so an old graph is
+freed whenever the collector runs, and a graph destroyed during another's
+capture invalidates that capture.  Every capture of a device shares that one
 stream, so the process keeps one cuBLAS workspace for it (cuBLAS keeps one
 for each stream that runs a matmul).  The hand-written kernels count their launches in Python, which a
 replay skips: the capture records what each wrapper counted, puts the counters
@@ -42,6 +45,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import gc
 
 import torch
 
@@ -173,6 +177,19 @@ def _warm_up(fn, device: torch.device):
     return out
 
 
+@contextlib.contextmanager
+def _collector_held():
+    """Keep Python's cyclic garbage collector from running inside the block
+    (an explicit ``gc.collect()`` still runs)."""
+    was_enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was_enabled:
+            gc.enable()
+
+
 def capture(name: str, fn, device, generators=()):
     """Run ``fn()`` once (the warm-up, a real step), then capture it.
 
@@ -185,7 +202,8 @@ def capture(name: str, fn, device, generators=()):
         graph.register_generator_state(g)
     before = _counts()
     try:
-        out = graph.capture(fn)
+        with _collector_held():
+            out = graph.capture(fn)
     except BaseException as e:
         e.add_note(f"[graphs] while capturing {name}")
         raise

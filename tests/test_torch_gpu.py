@@ -571,6 +571,39 @@ def test_registered_generator_follows_a_manual_seed(cuda):
         assert torch.equal(g.get_state(), e.get_state())
 
 
+def test_a_capture_outlives_an_old_graph_dropped_inside_it(cuda):
+    """A graph destroyed during another's capture invalidates that capture
+    ("operation failed due to a previous error during capture").  An old
+    graph dropped into a reference cycle inside a step, with the garbage
+    collector at a threshold of one allocation, is freed after the capture:
+    ``graphs.capture`` holds the collector off."""
+    import gc
+
+    from marlpde_tpu_torch.utils import graphs
+    x = torch.zeros(1024, device=cuda)
+
+    def step():
+        x.add_(1.0)
+
+    old = [graphs.capture("old step", step, cuda)[1] for _ in range(2)]
+
+    def dropping():
+        step()
+        cycle = {"graph": old.pop()}
+        cycle["self"] = cycle
+        del cycle
+        _ = [[i] for i in range(1000)]
+
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        graph = graphs.capture("step dropping an old graph", dropping, cuda)[1]
+    finally:
+        gc.set_threshold(*thresholds)
+    graph.replay()
+    assert x[0].item() == 4.0
+
+
 @pytest.mark.parametrize("mode", ["experience", "episode"])
 def test_mesh_update_replays_with_nccl_all_reduces_match_eager_calls(cuda, mode):
     """A world of 1 on NCCL: two calls of UPDATE_CHUNK + 3 updates through

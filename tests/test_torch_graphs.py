@@ -17,6 +17,7 @@ accounting per replay, a capture that fails, and Adam's ``capturable``
 through a checkpoint's state dict."""
 
 import dataclasses
+import gc
 
 import jax
 import jax.numpy as jnp
@@ -478,6 +479,43 @@ def test_a_failed_capture_raises_and_restores_the_counts(monkeypatch):
         graphs.capture("readback step", step, "cpu")
     assert "while capturing readback step" in "".join(err.value.__notes__)
     assert mlp.launches == before + 1
+
+
+def test_the_collector_frees_no_garbage_inside_a_capture(monkeypatch):
+    """A step and its ``Step`` form a reference cycle, so an old graph is
+    freed when the cyclic garbage collector runs, and on the card a graph
+    destroyed during another's capture invalidates that capture.  Garbage
+    made inside a capture is freed after it, even at a threshold of one
+    allocation; the collector's state is as the caller left it."""
+    standins.use(monkeypatch, standins.Counted)
+    freed, calls, inside = [], [], [False]
+
+    class OldGraph:
+        def __del__(self):
+            freed.append(("capture" if len(calls) == 2 and inside[0] else "elsewhere"))
+
+    def step():
+        calls.append(None)              # 1: the warm-up, 2: the capture
+        inside[0] = True
+        cycle = {"graph": OldGraph()}
+        cycle["self"] = cycle
+        del cycle
+        _ = [[i] for i in range(1000)]  # allocations that would start a collection
+        inside[0] = False
+
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        graphs.capture("step with garbage", step, "cpu")
+        assert gc.isenabled()
+        gc.collect()
+        assert freed == ["elsewhere", "elsewhere"]
+        gc.disable()
+        graphs.capture("step with garbage", step, "cpu")
+        assert not gc.isenabled()
+    finally:
+        gc.enable()
+        gc.set_threshold(*thresholds)
 
 
 def test_cuda_graphs_refuse_the_cpu():

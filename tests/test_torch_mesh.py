@@ -8,9 +8,10 @@ and each rank is handed the episodes and minibatch ids that the JAX device of
 its index gets (collection and sampling are patched in both, as their RNG
 streams never match; ``jax.lax.axis_index`` picks the device's share).
 Tolerance 1e-9 relative: float64 arithmetic, summed in another order over the
-ranks.  The JAX mesh keeps its replay in float32 whatever the env's dtype
-(``init_flat``/``replay.init`` defaults); these tests build it in float64, as
-the port does for a float64 env.  Then the invariants of
+ranks.  Both meshes keep their replays in float32 whatever the env's dtype
+(JAX's ``init_flat``/``replay.init`` defaults, the port's
+``trainer.REPLAY_DTYPE``); these tests build them in float64 on both sides.
+Then the invariants of
 tests/test_parallel.py, the CLI at world 1 and under two ranks, the "orbax"
 (torch.distributed.checkpoint) backend and the multi-process dry run."""
 
@@ -132,7 +133,8 @@ def generation(case, spec, cfg):
                                 num_agents=NA, obs_dim=cfg.obs_dim, act_dim=cfg.act_dim)
     gen_fn, init_rep = pmesh.make_sharded_generation(env, cfg, mesh, spec["epd"], spec["upd"])
     with patched(pmesh, "collect_episodes", lambda *a, **k: (traj, final)), \
-            patched(replay, "sample_episodes", lambda rep, generator, n: sampled):
+            patched(replay, "sample_episodes", lambda rep, generator, n: sampled), \
+            patched(pmesh.trainer, "REPLAY_DTYPE", torch.float64):
         ts, rep, _ = gen_fn(ts, init_rep(), None, 0)
     dump(case, ts, rep)
 
