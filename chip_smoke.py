@@ -8,12 +8,17 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 2. build both CUDA kernels from marlpde_tpu_torch/csrc (one nvcc per source,
    started together; sm_90a), with ptxas's registers and spills of each ABCN
    instantiation (N=32 the main path's) and of each width instantiation of
-   the MLP kernel (which spill; width 256 is [apg]'s), and the count of
+   both routes of the MLP kernel (the narrow route's mlp_forward_kernel and
+   the wide route's mlp_wide_kernel, each of which spills a few bytes at
+   widths 224 and 256), and the count of
    tensor-core instructions (HGMMA) in the MLP library's SASS;
 3. [kernels] each kernel against its plain PyTorch version on the card at the
    shapes of the paths below, with CUDA-event times (median of 20 calls) of
    both and the share of the card's bound (the least time for the bytes the
-   call must move or the operations it must do): ABCN at the flagship batch
+   call must move or the operations it must do); the MLP kernel's plain
+   version is VracerNet on cuBLAS, and each MLP row prints the kernel's time
+   over the module's, and at obs <= 4 (the narrow route) the wide route's
+   time too, forced, which the routing rule of kernels/mlp.py rests on: ABCN at the flagship batch
    (B=1024), the CLI's (B=10) and at N=64, the MLP at widths 128 and 256 in
    both mu_param modes, at the acting and insert row counts of the CLI, and
    at the KS shapes (obs 32, 16 actions, width 256, sigma_relative, sigma_max
@@ -541,13 +546,24 @@ def phase_kernels(env, dev):
                   "mlp output shape")
             ms = median_ms(lambda: mlp.mlp_forward(x, net))
             plain_ms = median_ms(lambda: net(x))
+            wide = ""
+            if not mlp.wide_route(D):
+                # the wide route forced where the narrow one runs: the routing rule's evidence
+                out_w = mlp.mlp_forward(x, net, route="wide")
+                err_w = max((o - r).abs().max().item() for o, r in zip(out_w, ref))
+                check(err_w <= MLP_TOL, f"mlp kernel's wide route disagrees with VracerNet "
+                                        f"(R={R}, obs={D}, W={width}): {err_w:.3e}")
+                ms_w = median_ms(lambda: mlp.mlp_forward(x, net, route="wide"))
+                wide = f"; the wide route forced {ms_w:.4f} ms (max abs err {err_w:.3e})"
         bound_ms, bound_by = mlp_bound(R, D, width, A)
+        route = "wide" if mlp.wide_route(D) else "narrow"
         print(f"[kernels] mlp_forward R={R} obs={D} W={width} A={A} mu_param={mu_param} "
-              f"sigma_max={sigma_max:g}: max abs err {err:.3e} (tolerance {MLP_TOL:g}: "
-              f"3xTF32 tensor-core sums of {width} terms against cuBLAS's float32); "
-              f"kernel {ms:.4f} ms, plain module {plain_ms:.4f} ms; bound {bound_ms:.5f} ms "
-              f"({bound_by}), {100 * bound_ms / ms:.1f}% of it; no single PyTorch call "
-              f"computes this function")
+              f"sigma_max={sigma_max:g} ({route} route): max abs err {err:.3e} (tolerance "
+              f"{MLP_TOL:g}: 3xTF32 tensor-core sums against cuBLAS's float32); kernel "
+              f"{ms:.4f} ms, plain VracerNet on cuBLAS {plain_ms:.4f} ms, kernel/module "
+              f"{ms / plain_ms:.3f}; bound {bound_ms:.5f} ms ({bound_by}), "
+              f"{100 * bound_ms / ms:.1f}% of it; no single PyTorch call computes this "
+              f"function (the module is a composition of cuBLAS calls){wide}")
         check(err <= MLP_TOL, f"mlp kernel disagrees with VracerNet (R={R}, obs={D}, "
                               f"W={width}, {mu_param}): {err:.3e}")
         mlp_rows.append(dict(R=R, D=D, A=A, iex=iex, width=width, mu_param=mu_param, err=err,
@@ -2823,12 +2839,18 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s")
     mlp_ptxas = ptxas_by_instantiation(build.build_logs["mlp"], "mlp_forward_kernel",
                                        range(32, 257, 32))
-    print("[build] mlp: " + ", ".join(
+    print("[build] mlp narrow route: " + ", ".join(
         f"W={w}: {r} registers, {st}/{ld} bytes spill stores/loads"
         for w, (r, st, ld) in sorted(mlp_ptxas.items())))
     spilling = [w for w, (_, st, ld) in sorted(mlp_ptxas.items()) if st or ld]
-    print(f"[build] mlp widths that spill: {spilling}; width 256 (burger-jax's, run by the "
-          f"[apg] --test stage) {'spills' if 256 in spilling else 'does not spill'}")
+    print(f"[build] mlp narrow-route widths that spill: {spilling}")
+    wide_ptxas = ptxas_by_instantiation(build.build_logs["mlp"], "mlp_wide_kernel",
+                                        range(32, 257, 32))
+    print("[build] mlp wide route: " + ", ".join(
+        f"W={w}: {r} registers, {st}/{ld} bytes spill stores/loads"
+        for w, (r, st, ld) in sorted(wide_ptxas.items())))
+    print(f"[build] mlp wide-route widths that spill: "
+          f"{[w for w, (_, st, ld) in sorted(wide_ptxas.items()) if st or ld]}")
     warnings = [ln.strip() for ln in build.build_logs["mlp"].splitlines()
                 if "warning" in ln or "Performance Loss" in ln]
     if warnings:

@@ -123,14 +123,15 @@ def test_mlp_kernel_matches_module(cuda, mu_param, sigma_max, R):
                                              (128, 128), (256, 256)])
 @pytest.mark.parametrize("width", range(32, 257, 32))
 def test_mlp_kernel_widths(cuda, width, obs_dim, act_dim, mu_param):
-    """Every width the kernel takes (one wgmma width each; W2 resident up to
-    160, streamed above), at the burger-marl shape (inputs in registers), at
-    the single-agent burger shape (32 obs, 32 actions), at obs 33 (inputs
+    """Every width the kernel takes (one wgmma width each), at the
+    burger-marl shape (the narrow route: W2 resident up to 160, streamed
+    above), and on the wide route at the single-agent burger shape (32 obs,
+    32 actions), at obs 33 (a layer-1 chunk with one live k-step, inputs
     read one at a time), and at obs 80, 128 and 256 (diffusion-stencil3 and
     diffusion-simple at obs 128, burger-fd at width 256): with W1 and the x
-    tile staged in shared memory, obs 80 at width 256 left one stage to a
-    streaming ring, which hung, and obs 128 from width 160 and obs 256 from
-    width 64 left none, which raised."""
+    tile staged whole in shared memory, obs 80 at width 256 left one stage
+    to a streaming ring, which hung, and obs 128 from width 160 and obs 256
+    from width 64 left none, which raised."""
     g = torch.Generator().manual_seed(width)
     net = networks.VracerNet(obs_dim, act_dim, width=width, mu_param=mu_param, device=cuda)
     with torch.no_grad():
@@ -148,9 +149,9 @@ def test_mlp_kernel_widths(cuda, width, obs_dim, act_dim, mu_param):
 @pytest.mark.parametrize("obs_dim,act_dim", [(32, 16), (128, 128)])
 @pytest.mark.parametrize("width", [32, 128, 256])
 def test_mlp_kernel_unaligned_inputs_give_the_aligned_bits(cuda, width, obs_dim, act_dim):
-    """obs whose rows are not 16-byte aligned are read one input at a time,
-    aligned ones four at a time, with the FMAs in the same order: the same
-    bits, and within 2e-5 of the module."""
+    """obs whose rows are not 16-byte aligned give the bits of aligned ones
+    (the wide route stages x in its fragment order either way), within 2e-5
+    of the module."""
     g = torch.Generator().manual_seed(width + obs_dim)
     net = networks.VracerNet(obs_dim, act_dim, width=width, device=cuda)
     with torch.no_grad():
@@ -215,6 +216,127 @@ def test_mlp_kernel_refuses_widths_it_does_not_take(cuda, width):
     net = networks.VracerNet(3, 1, width=width, device=cuda)
     with pytest.raises(ValueError, match="multiple of 32 up to 256"):
         mlp.mlp_forward(torch.zeros(4, 3, device=cuda), net)
+
+
+# the wide route's shapes: burger-fd, diffusion-simple, KS, obs 256 at width 256
+# (obs, actions, width, mu_param, sigma_max, iex)
+WIDE_SHAPES = [(256, 256, 32, "absolute", 0.05, 0.005), (128, 128, 128, "sigma_relative", 5.0, 3.0),
+               (32, 16, 256, "sigma_relative", 5.0, 0.01), (256, 256, 256, "absolute", 0.5, 0.005)]
+
+
+def _wide_net(cuda, obs_dim, act_dim, width, mu_param, sigma_max, iex, seed):
+    """A net whose sigma heads reach the cap on some outputs and not on others."""
+    g = torch.Generator().manual_seed(seed)
+    net = networks.VracerNet(obs_dim, act_dim, width=width, mu_param=mu_param,
+                             sigma_max=sigma_max, init_noise=iex, device=cuda)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.copy_(torch.randn(p.shape, generator=g).to(cuda) * (0.5 / np.sqrt(p.shape[-1])))
+        net.sigma.bias.copy_(torch.linspace(-3.0, 3.0, act_dim) * sigma_max / iex)
+    return net, g
+
+
+def _held(out, net, x):
+    ref = net(x)
+    for o, r in zip(out, ref):
+        assert o.shape == r.shape and torch.isfinite(o).all()
+        assert (o - r).abs().max().item() <= 2e-5     # tests/test_pallas.py MLP tolerance
+    return ref
+
+
+@pytest.mark.parametrize("R", [1, 10, 16, 63, 64, 65, 127, 129, 5000, 8000])
+@pytest.mark.parametrize("shape", WIDE_SHAPES, ids=lambda s: f"d{s[0]}a{s[1]}w{s[2]}")
+def test_mlp_wide_route_rows(cuda, shape, R):
+    """Row counts on both sides of the 64-row tile, at the acting and insert
+    counts of the paths, with the cap and sigma_relative in the epilogue."""
+    net, g = _wide_net(cuda, *shape, seed=R)
+    with torch.no_grad():
+        x = torch.randn(R, shape[0], generator=g).to(cuda)
+        before = mlp.launches
+        out = mlp.mlp_forward(x, net)
+        torch.cuda.synchronize()
+        assert mlp.launches == before + 1
+        ref = _held(out, net, x)
+    if shape[4] < 1.0:      # the cap is reached by some outputs, not all
+        assert (ref[2] == shape[4]).any() and (ref[2] < shape[4]).any()
+
+
+@pytest.mark.parametrize("mu_param", ["absolute", "sigma_relative"])
+@pytest.mark.parametrize("act_dim", [1, 2, 3, 16, 33, 64, 128, 256])
+@pytest.mark.parametrize("width", [32, 128, 256])
+def test_mlp_wide_route_actions(cuda, width, act_dim, mu_param):
+    """Action counts that leave the last 32-slot head tile part full (the
+    value head takes slot A), at R=65 (two row tiles, the second with one
+    row) and R=10 (one tile, a block per head tile)."""
+    net, g = _wide_net(cuda, 128, act_dim, width, mu_param, 0.5, 0.1, seed=act_dim)
+    with torch.no_grad():
+        for R in (65, 10):
+            x = torch.randn(R, 128, generator=g).to(cuda)
+            _held(mlp.mlp_forward(x, net), net, x)
+
+
+@pytest.mark.parametrize("R", [10, 5000])
+@pytest.mark.parametrize("shape", WIDE_SHAPES, ids=lambda s: f"d{s[0]}a{s[1]}w{s[2]}")
+def test_mlp_wide_route_gives_the_same_bits_twice(cuda, shape, R):
+    net, g = _wide_net(cuda, *shape, seed=3)
+    with torch.no_grad():
+        x = torch.randn(R, shape[0], generator=g).to(cuda)
+        first = mlp.mlp_forward(x, net)
+        second = mlp.mlp_forward(x, net)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_mlp_wide_route_reads_weights_changed_in_place(cuda):
+    """The wide route reads the parameters themselves: W1 and a head row
+    edited in place, then every weight changed by a replayed graph of an Adam
+    step (which bumps no version counter), reach the next call."""
+    from marlpde_tpu_torch.utils import graphs
+    net, g = _wide_net(cuda, 32, 16, 256, "sigma_relative", 5.0, 0.01, seed=9)
+    x = torch.randn(16, 32, generator=g).to(cuda)
+    with torch.no_grad():
+        before = mlp.mlp_forward(x, net)
+        net.hidden[0].weight.mul_(1.25)
+        net.mu.weight[3].add_(0.02)
+        after = mlp.mlp_forward(x, net)
+        ref = _held(after, net, x)
+    assert (before[1] - ref[1]).abs().max().item() > 1e-3
+    opt = torch.optim.Adam(net.parameters(), lr=1e-3, capturable=True)
+
+    def step():
+        opt.zero_grad(set_to_none=False)
+        v, mu, sigma = net(x)
+        (v.square().mean() + mu.square().mean() + sigma.mean()).backward()
+        opt.step()
+
+    _, graph = graphs.capture("adam step", step, cuda)
+    versions = [p._version for p in net.parameters()]
+    with torch.no_grad():
+        stale = [t.clone() for t in mlp.mlp_forward(x, net)]
+        graph.replay()
+        assert [p._version for p in net.parameters()] == versions
+        out = mlp.mlp_forward(x, net)
+        _held(out, net, x)
+    assert (out[1] - stale[1]).abs().max().item() > 1e-4
+
+
+@pytest.mark.parametrize("width", [32, 256])
+@pytest.mark.parametrize("R", [10, 5000])
+def test_mlp_route_boundary(cuda, R, width):
+    """obs 4 takes the narrow route and obs 5 the wide one; at obs 4 the wide
+    route, forced, agrees too, and the narrow route refuses obs 5."""
+    for obs_dim in (4, 5):
+        net, g = _wide_net(cuda, obs_dim, 3, width, "absolute", 0.5, 0.1, seed=obs_dim)
+        x = torch.randn(R, obs_dim, generator=g).to(cuda)
+        with torch.no_grad():
+            _held(mlp.mlp_forward(x, net), net, x)
+            _held(mlp.mlp_forward(x, net, route="wide"), net, x)
+            if obs_dim == 4:
+                narrow = mlp.mlp_forward(x, net, route="narrow")
+                assert all(torch.equal(a, b) for a, b in zip(narrow, mlp.mlp_forward(x, net)))
+            else:
+                with pytest.raises(ValueError, match="route"):
+                    mlp.mlp_forward(x, net, route="narrow")
 
 
 def test_fast_env_step_on_card_matches_cpu(cuda):
@@ -345,9 +467,9 @@ def test_ks_step_on_card_matches_cpu(cuda, dtype, tol):
 def test_mlp_kernel_at_the_burger_fd_shape(cuda, R):
     """run-vracer-burger-fd.py's policy: obs 256, 256 actions, width 32, iex
     0.005 (sigma_max 0.05, the CLI's default); R=10 acting rows, R=5000
-    insert rows.  Layer 1 loops over the 256 inputs in shared memory, whose
-    fixed part (1024 + 4 (W D + W + 128 D) bytes, ~165 KB) leaves room for one
-    8 KB W2 stage within the 227 KB opt-in limit."""
+    insert rows.  When W1 and the x tile were staged whole in shared memory
+    (1024 + 4 (W D + W + 128 D) bytes, ~165 KB), they left room for one 8 KB
+    W2 stage within the 227 KB opt-in limit; the wide route streams them."""
     g = torch.Generator().manual_seed(R)
     net = networks.VracerNet(256, 256, width=32, init_noise=0.005, sigma_max=0.05,
                              device=cuda)

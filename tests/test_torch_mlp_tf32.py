@@ -1,7 +1,8 @@
 """The MLP kernel's 3xTF32 arithmetic on the CPU: the TF32 split, the W2 image
-the kernel reads, and a plain emulation of the forward against the JAX
-package's float64 VracerNet, which also shows why one TF32 product is not
-enough for the kernel's 2e-5 tolerance."""
+the narrow route reads, the head matrix the wide route's product reads, and a
+plain emulation of the forward on both routes against the JAX package's
+float64 VracerNet, which also shows why one TF32 product is not enough for
+the kernel's 2e-5 tolerance, in layer 2 or in layer 1 and the heads."""
 
 import jax
 import jax.numpy as jnp
@@ -78,16 +79,18 @@ def test_w2_image_is_the_swizzled_split(width):
                 assert torch.equal(got, ref[:, kc * 32 + 4 * j: kc * 32 + 4 * j + 4])
 
 
-def _nets(width, obs_dim, act_dim, mu_param, seed):
+def _nets(width, obs_dim, act_dim, mu_param, seed, sigma_max=np.inf):
     """A flax VracerNet with seeded lecun-scale weights (non-zero heads and
     biases) and the port's float32 VracerNet loaded with the same weights."""
-    jn = jnet.VracerNet(act_dim=act_dim, width=width, init_noise=0.3, mu_param=mu_param)
+    jn = jnet.VracerNet(act_dim=act_dim, width=width, init_noise=0.3, mu_param=mu_param,
+                        sigma_max=sigma_max)
     params = jn.init(jax.random.key(0), jnp.zeros((1, obs_dim)))
     rng = np.random.default_rng(seed)
     params = jax.tree.map(lambda a: jnp.asarray(
         rng.standard_normal(a.shape) / np.sqrt(a.shape[0] if a.ndim == 2 else 10.0),
         jnp.float64), params)
-    tn = tnet.VracerNet(obs_dim, act_dim, width=width, init_noise=0.3, mu_param=mu_param)
+    tn = tnet.VracerNet(obs_dim, act_dim, width=width, init_noise=0.3, mu_param=mu_param,
+                        sigma_max=sigma_max)
     state = {k: v.float() for k, v in tnet.params_from_flax(np_tree(params)).items()}
     tn.load_state_dict(state)
     return jn, params, tn
@@ -109,6 +112,71 @@ def test_3xtf32_forward_matches_flax_float64_and_tf32_does_not(width, obs_dim, a
     err1 = max(np.abs(o - r).max() for o, r in zip(one, ref))
     assert err3 <= MLP_TOL, err3
     assert err1 > 5 * MLP_TOL, err1     # plain TF32: 10 mantissa bits are not enough
+
+
+def _errors(jn, params, tn, obs, **products):
+    ref = [np.asarray(o) for o in jn.apply(params, jnp.asarray(obs))]
+    with torch.no_grad():
+        got = mlp.mlp_forward_tf32(torch.from_numpy(obs.astype(np.float32)), tn, **products)
+    return max(np.abs(o.double().numpy() - r).max() for o, r in zip(got, ref))
+
+
+@pytest.mark.parametrize("mu_param", ["absolute", "sigma_relative"])
+@pytest.mark.parametrize("width,obs_dim,act_dim", [(32, 256, 256), (128, 128, 128),
+                                                   (256, 32, 16), (256, 256, 256)])
+def test_wide_route_matches_flax_float64_and_tf32_layer1_and_heads_do_not(
+        width, obs_dim, act_dim, mu_param):
+    """The wide route's shapes (burger-fd, diffusion-simple, KS, obs 256 at
+    width 256) under a sigma cap that some outputs reach: every product in
+    3xTF32 is within the tolerance; plain TF32 in layer 1 and the heads alone
+    (layer 2 still 3xTF32) is not."""
+    assert mlp.wide_route(obs_dim)
+    jn, params, tn = _nets(width, obs_dim, act_dim, mu_param, seed=width + obs_dim,
+                           sigma_max=0.5)
+    obs = np.random.default_rng(2).standard_normal((100, obs_dim))
+    with torch.no_grad():
+        sigma = mlp.mlp_forward_tf32(torch.from_numpy(obs.astype(np.float32)), tn)[2]
+    assert (sigma == 0.5).any() and (sigma < 0.5).any()       # the cap acts on some
+    err3 = _errors(jn, params, tn, obs)
+    err1 = _errors(jn, params, tn, obs, wide_products=1)
+    assert err3 <= MLP_TOL, err3
+    assert err1 > 5 * MLP_TOL, err1
+
+
+@pytest.mark.parametrize("act_dim", [1, 31, 32, 33, 256])
+def test_head_matrix_is_the_heads_permuted(act_dim):
+    """The wide route's head matrix holds every row of the three heads once,
+    at the place the kernel's epilogue reads it (mu of slot s in tile s // 32,
+    column s % 32; its sigma 32 columns on; the value head at slot A), and
+    zeros elsewhere."""
+    _, _, tn = _nets(64, 8, act_dim, "absolute", act_dim)
+    weight, bias = mlp.head_matrix(tn)
+    tiles = -(-(act_dim + 1) // 32)
+    assert weight.shape == (tiles * mlp.HEAD_N, 64) and bias.shape == (tiles * mlp.HEAD_N,)
+    mu_rows = [(s // 32) * 64 + s % 32 for s in range(act_dim)]
+    sigma_rows = [r + 32 for r in mu_rows]
+    v_row = (act_dim // 32) * 64 + act_dim % 32
+    assert torch.equal(weight[mu_rows], tn.mu.weight) and torch.equal(bias[mu_rows], tn.mu.bias)
+    assert torch.equal(weight[sigma_rows], tn.sigma.weight)
+    assert torch.equal(bias[sigma_rows], tn.sigma.bias)
+    assert torch.equal(weight[v_row], tn.value.weight[0]) and bias[v_row] == tn.value.bias[0]
+    rest = sorted(set(range(len(weight))) - set(mu_rows) - set(sigma_rows) - {v_row})
+    assert not weight[rest].any() and not bias[rest].any()
+
+
+def test_route_boundary():
+    """obs widths up to 4 take the narrow route, wider ones the wide route;
+    the emulation follows: at obs 4 plain TF32 in layer 1 and the heads
+    changes nothing (they are float32 there), at obs 5 it does."""
+    assert [mlp.wide_route(d) for d in (1, 3, 4, 5, 6, 256)] == [False] * 3 + [True] * 3
+    obs = {d: torch.from_numpy(np.random.default_rng(d).standard_normal((50, d))
+                               .astype(np.float32)) for d in (4, 5)}
+    with torch.no_grad():
+        for d, changes in ((4, False), (5, True)):
+            _, _, tn = _nets(64, d, 3, "absolute", d)
+            three = mlp.mlp_forward_tf32(obs[d], tn)
+            one = mlp.mlp_forward_tf32(obs[d], tn, wide_products=1)
+            assert any(not torch.equal(a, b) for a, b in zip(three, one)) == changes
 
 
 def test_forward_tf32_rejects_other_product_counts():
