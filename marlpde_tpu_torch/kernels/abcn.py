@@ -25,9 +25,10 @@ import torch
 
 from marlpde_tpu_torch.device import constant
 from marlpde_tpu_torch.kernels import build
+from marlpde_tpu_torch.utils import profiling
 
 # kernel launches since the last reset; incremented only where the CUDA kernel
-# is launched
+# is launched (the tracer also counts them by shape: launches/<kernel> <shape>)
 launches = 0
 
 _FIELDS = ("u", "v_re", "v_im", "fn_re", "fn_im", "af_re", "af_im")
@@ -227,4 +228,5 @@ def abcn_macro_step(u, v_re, v_im, fn_re, fn_im, nu, af_re, af_im,
         raise RuntimeError(f"abcn_macro_step: launch failed: "
                            f"{lib.error_string(status).decode()} ({status})")
     launches += 1
+    profiling.count(f"launches/abcn {B}x{N}x{int(n_intermediate)}")
     return tuple(outs)

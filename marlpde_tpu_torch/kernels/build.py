@@ -24,6 +24,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from marlpde_tpu_torch.utils import profiling
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "marlpde_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -83,16 +85,18 @@ def _compile(names) -> None:
 def build_all(names) -> None:
     """Build the missing libraries of ``csrc/<name>.cu`` for every name, in
     parallel (one nvcc each); ``load`` then only loads them."""
-    with _lock:
+    with _lock, profiling.span("setup.kernels", attr=",".join(names)):
         _compile(names)
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Build (if its cached library is missing) and load ``csrc/<name>.cu``."""
+    """Build (if its cached library is missing) and load ``csrc/<name>.cu``:
+    a ``setup.kernels`` span of the tracer, once a library and process."""
     with _lock:
         if name in _loaded:
             return _loaded[name]
-        _compile([name])
-        lib = ctypes.CDLL(str(library_path(name)))
+        with profiling.span("setup.kernels", attr=name):
+            _compile([name])
+            lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
         return lib

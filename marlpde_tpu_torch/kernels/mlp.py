@@ -34,9 +34,10 @@ from functools import lru_cache
 import torch
 
 from marlpde_tpu_torch.kernels import build
+from marlpde_tpu_torch.utils import profiling
 
 # kernel launches since the last reset; incremented only where the CUDA kernel
-# is launched
+# is launched (the tracer also counts them by shape: launches/<kernel> <shape>)
 launches = 0
 # writes of a W2 image for the kernel since the last reset, by the host
 # (a replayed update's rewrite is not counted); not kernel launches
@@ -275,4 +276,5 @@ def mlp_forward(obs, net, route: str | None = None):
         raise RuntimeError(f"mlp_forward: launch failed: "
                            f"{lib.error_string(status).decode()} ({status})")
     launches += 1
+    profiling.count(f"launches/mlp {R}x{D}x{W}x{A}")
     return V, mu, sigma

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from marlpde_tpu_torch.rl import running_stats
+from marlpde_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -175,8 +176,9 @@ def add_episodes(rep: FlatReplay, batch: dict, sv, vtg, boot) -> FlatReplay:
     device = rep.obs.device
     valid = mask > 0
     lengths = valid.sum(1)                                       # (B,)
-    rows = valid.reshape(-1).nonzero().squeeze(1)                # row-major = packed order
-    total = rows.shape[0]                                        # the insert's one readback
+    with profiling.span("wait"):                                 # the insert's one readback
+        rows = valid.reshape(-1).nonzero().squeeze(1)            # row-major = packed order
+    total = rows.shape[0]
     keep = min(total, E)
     rows = rows[total - keep:]
     slot = (rep.cursor + torch.arange(total - keep, total, device=device)) % E

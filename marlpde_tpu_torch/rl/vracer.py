@@ -46,6 +46,7 @@ import torch
 from marlpde_tpu_torch.kernels import mlp
 from marlpde_tpu_torch.rl import distributions as D
 from marlpde_tpu_torch.rl import networks, replay_flat, running_stats
+from marlpde_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True, eq=True)
@@ -213,7 +214,8 @@ def _median_abs(r, w):
     lo = torch.minimum(torch.clamp(torch.floor(q), min=0).to(torch.int64), top)
     hi = torch.minimum(torch.clamp(torch.ceil(q), min=0).to(torch.int64), top)
     hw = (q - torch.floor(q)).to(r.dtype)
-    med = srt[lo] * (1.0 - hw) + srt[hi] * hw
+    with profiling.span("wait"):                    # indexing by a device scalar reads it back
+        med = srt[lo] * (1.0 - hw) + srt[hi] * hw
     return torch.where(n > 0, torch.clamp(med, min=1e-30), torch.zeros_like(med))
 
 
@@ -244,7 +246,7 @@ def observe_episodes(cfg: VracerConfig, ts: TrainState, batch) -> TrainState:
         if cfg.reward_stat_winsor > 0:
             # clip at winsor * the current cumulative scale once the
             # accumulator is warm, else at winsor * the batch median |r|
-            if float(ts.rew_stats.count) > 1000.0:
+            if profiling.host(ts.rew_stats.count) > 1000.0:
                 ref = running_stats.second_moment(ts.rew_stats)
             else:
                 ref = _median_abs(r_stat, w)

@@ -41,8 +41,7 @@ from marlpde_tpu_torch.envs.rollout import Env, collect_episodes
 from marlpde_tpu_torch.rl import replay as replay_mod
 from marlpde_tpu_torch.rl import replay_flat, running_stats, vracer
 from marlpde_tpu_torch.utils import checkpoint as ckpt
-from marlpde_tpu_torch.utils import graphs
-from marlpde_tpu_torch.utils.profiling import Throughput
+from marlpde_tpu_torch.utils import graphs, profiling
 
 # updates in one graph of ``run_updates``: the JAX package's UPDATE_CHUNK
 # (marlpde_tpu/train/trainer.py:32), its updates in one compiled scan
@@ -319,21 +318,29 @@ def train(env: Env, rl_cfg: Optional[vracer.VracerConfig] = None,
     rl_cfg = rl_cfg or default_rl_config(env)
     record = tc.save_episodes_dir is not None
     device, dtype = env.device, env.dtype
-    generator = torch.Generator(device=device)
-    generator.manual_seed(tc.seed)
-    ts = (vracer.init_train(rl_cfg, generator, dtype=dtype, device=device)
-          if init_ts is None else init_ts)
-    if init_generator_state is not None:
-        generator.set_state(init_generator_state)
-    rep = init_replay if init_replay is not None else make_replay(env, rl_cfg)
+    with profiling.span("setup.init", sync=device):
+        generator = torch.Generator(device=device)
+        generator.manual_seed(tc.seed)
+        ts = (vracer.init_train(rl_cfg, generator, dtype=dtype, device=device)
+              if init_ts is None else init_ts)
+        if init_generator_state is not None:
+            generator.set_state(init_generator_state)
+        rep = init_replay if init_replay is not None else make_replay(env, rl_cfg)
+        prev_probe_mu = init_probe_mu = None
+        if tc.decay_diagnostics:
+            n_probe = 32
+            probe_gen = torch.Generator(device=device).manual_seed(tc.seed + 777)
+            _, probe_obs = env.reset_batch(env.consts, probe_gen,
+                                           torch.arange(n_probe, device=device))
     exp_mode = rl_cfg.minibatch_mode == "experience"
 
-    throughput = Throughput()
     history = init_history if init_history else dict(
         gen=[], experiences=[], mean_return=[], mean_ep_len=[], updates=[], metrics=[],
         test_return=[], wall_time=[], env_steps_per_s=[], blowups=[], rew_scale=[])
     for key in ("env_steps_per_s", "blowups", "rew_scale"):
         history.setdefault(key, [])
+    if tc.decay_diagnostics:
+        history.setdefault("diag", [])
     if init_counters is not None:
         gen = init_counters["gen"]
         total_exp = init_counters["total_exp"]
@@ -357,93 +364,97 @@ def train(env: Env, rl_cfg: Optional[vracer.VracerConfig] = None,
     else:
         real_in_replay = 0
 
-    prev_probe_mu = init_probe_mu = None
-    if tc.decay_diagnostics:
-        history.setdefault("diag", [])
-        n_probe = 32
-        probe_gen = torch.Generator(device=device).manual_seed(tc.seed + 777)
-        _, probe_obs = env.reset_batch(env.consts, probe_gen,
-                                       torch.arange(n_probe, device=device))
-
     t0 = time.time()
     while total_exp < tc.max_experiences:
-        traj, final = collect_episodes(env, rl_cfg, ts, generator, tc.num_envs, episode_base,
-                                       record_fields=record)
-        ts, rep = insert_generation(rl_cfg, ts, rep, traj)
-        episode_base += tc.num_envs
-        if real_mode:
-            gen_exp = int(traj["mask"].sum())
-            real_in_replay += gen_exp
-        else:
-            gen_exp = tc.num_envs * T
-        n_upd = _n_target(rl_cfg, tc, rep, T, real_in_replay, gen_exp, updates_done,
-                          upd_per_gen)
-        ts, rep, metrics = run_updates(rl_cfg, ts, rep, generator, n_upd)
-        total_exp += gen_exp
-        gen += 1
-        updates_done += n_upd
-        mean_ret = float(final.cum_reward.mean())
-        ep_len = float(traj["mask"].sum(1).mean())
-        history["gen"].append(gen)
-        history["experiences"].append(total_exp)
-        history["mean_return"].append(mean_ret)
-        history["mean_ep_len"].append(ep_len)
-        history["updates"].append(n_upd)
-        history["metrics"].append({k: float(v) for k, v in metrics.items()})
-        history["wall_time"].append(time.time() - t0)
-        throughput.tick(gen_exp)
-        history["env_steps_per_s"].append(throughput.rate())
-        history["blowups"].append(int(traj["truncated"].sum()))
-        history["rew_scale"].append(float(running_stats.second_moment(ts.rew_stats)))
+        # one generation, its spans and readbacks in the tracer; the callback
+        # runs after it
+        with profiling.span("generation", gen=gen + 1) as unit:
+            with profiling.span("collect", work=T):
+                traj, final = collect_episodes(env, rl_cfg, ts, generator, tc.num_envs,
+                                               episode_base, record_fields=record)
+            with profiling.span("insert", work=1):
+                ts, rep = insert_generation(rl_cfg, ts, rep, traj)
+            episode_base += tc.num_envs
+            if real_mode:
+                gen_exp = int(profiling.host(traj["mask"].sum()))
+                real_in_replay += gen_exp
+            else:
+                gen_exp = tc.num_envs * T
+            n_upd = _n_target(rl_cfg, tc, rep, T, real_in_replay, gen_exp, updates_done,
+                              upd_per_gen)
+            with profiling.span("updates", work=n_upd):
+                ts, rep, metrics = run_updates(rl_cfg, ts, rep, generator, n_upd)
+            total_exp += gen_exp
+            gen += 1
+            updates_done += n_upd
+            names = list(metrics)
+            mean_ret, ep_len, blowups, rew_scale, *values = profiling.host(
+                final.cum_reward.mean(), traj["mask"].sum(1).mean(), traj["truncated"].sum(),
+                running_stats.second_moment(ts.rew_stats), *metrics.values())
+            history["gen"].append(gen)
+            history["experiences"].append(total_exp)
+            history["mean_return"].append(mean_ret)
+            history["mean_ep_len"].append(ep_len)
+            history["updates"].append(n_upd)
+            history["metrics"].append({k: float(v) for k, v in zip(names, values)})
+            history["wall_time"].append(time.time() - t0)
+            history["blowups"].append(blowups)
+            history["rew_scale"].append(rew_scale)
 
-        if tc.decay_diagnostics:
-            V, mu_p, sigma_p = vracer.policy_apply(rl_cfg, ts, probe_obs)
-            rscale = float(running_stats.second_moment(ts.rew_stats))
-            mu_p = mu_p.cpu().numpy()
-            if init_probe_mu is None:
-                init_probe_mu = mu_p
-            rms = lambda a: float(np.sqrt(np.mean(a * a)))
-            occ = (min(rep.cursor, rl_cfg.replay_max_experiences) if exp_mode
-                   else rep.filled)
-            history["diag"].append(dict(
-                # V(s0) and the realized return, both in SCALED units
-                v0_scaled=float(V.mean()),
-                return_scaled=float(mean_ret / max(rscale, 1e-30)),
-                rew_scale=rscale,
-                mu_drift_rms=(rms(mu_p - prev_probe_mu) if prev_probe_mu is not None
-                              else 0.0),
-                mu_from_init_rms=rms(mu_p - init_probe_mu),
-                mu_rms=rms(mu_p), sigma_probe=float(sigma_p.mean()),
-                replay_occupancy=int(occ)))
-            prev_probe_mu = mu_p
+            if tc.decay_diagnostics:
+                with profiling.span("diag"):
+                    V, mu_p, sigma_p = vracer.policy_apply(rl_cfg, ts, probe_obs)
+                    v0, sigma_mean, mu_p = profiling.host(V.mean(), sigma_p.mean(), mu_p)
+                    if init_probe_mu is None:
+                        init_probe_mu = mu_p
+                    rms = lambda a: float(np.sqrt(np.mean(a * a)))
+                    occ = (min(rep.cursor, rl_cfg.replay_max_experiences) if exp_mode
+                           else rep.filled)
+                    history["diag"].append(dict(
+                        # V(s0) and the realized return, both in SCALED units
+                        v0_scaled=v0,
+                        return_scaled=float(mean_ret / max(rew_scale, 1e-30)),
+                        rew_scale=rew_scale,
+                        mu_drift_rms=(rms(mu_p - prev_probe_mu) if prev_probe_mu is not None
+                                      else 0.0),
+                        mu_from_init_rms=rms(mu_p - init_probe_mu),
+                        mu_rms=rms(mu_p), sigma_probe=sigma_mean,
+                        replay_occupancy=int(occ)))
+                    prev_probe_mu = mu_p
 
-        if record:
-            save_episodes(tc, gen, traj, final)
-        if tc.testing_frequency and gen % tc.testing_frequency == 0:
-            _, tfinal = collect_episodes(env, rl_cfg, ts, generator, tc.testing_episodes, 0,
-                                         deterministic=True)
-            tret = float(tfinal.cum_reward.mean())
-            history["test_return"].append(tret)
-            # best-policy checkpoint by deterministic test return
-            if tc.checkpoint_dir and tret > best_test:
-                best_test = tret
-                best = os.path.join(tc.checkpoint_dir, "best")
-                ckpt.save_train_state(best, ts, None)
-                with open(os.path.join(best, "best.json"), "w") as f:
-                    json.dump({"gen": gen, "test_return": tret}, f)
-        if tc.checkpoint_dir and gen % tc.checkpoint_every == 0:
-            _save_checkpoint(tc, ts, history, rep, generator, gen, total_exp, episode_base,
-                             real_in_replay, rl_cfg)
-        if verbose and gen % tc.log_every == 0:
-            print(f"[trainer] gen {gen} exp {total_exp} return {mean_ret:.5f} "
-                  f"eplen {ep_len:.1f} updates {n_upd} "
-                  f"beta {history['metrics'][-1].get('beta', '-')}", flush=True)
+            if record:
+                with profiling.span("save_episodes"):
+                    save_episodes(tc, gen, traj, final)
+            if tc.testing_frequency and gen % tc.testing_frequency == 0:
+                with profiling.span("test", work=T):
+                    _, tfinal = collect_episodes(env, rl_cfg, ts, generator,
+                                                 tc.testing_episodes, 0, deterministic=True)
+                    tret = profiling.host(tfinal.cum_reward.mean())
+                    history["test_return"].append(tret)
+                    # best-policy checkpoint by deterministic test return
+                    if tc.checkpoint_dir and tret > best_test:
+                        best_test = tret
+                        best = os.path.join(tc.checkpoint_dir, "best")
+                        ckpt.save_train_state(best, ts, None)
+                        with open(os.path.join(best, "best.json"), "w") as f:
+                            json.dump({"gen": gen, "test_return": tret}, f)
+            if tc.checkpoint_dir and gen % tc.checkpoint_every == 0:
+                with profiling.span("checkpoint"):
+                    _save_checkpoint(tc, ts, history, rep, generator, gen, total_exp,
+                                     episode_base, real_in_replay, rl_cfg)
+            if verbose and gen % tc.log_every == 0:
+                print(f"[trainer] gen {gen} exp {total_exp} return {mean_ret:.5f} "
+                      f"eplen {ep_len:.1f} updates {n_upd} "
+                      f"beta {history['metrics'][-1].get('beta', '-')}", flush=True)
+        # the generation's experiences over its span (korali's per-generation rate)
+        history["env_steps_per_s"].append(gen_exp / max(unit.ns * 1e-9, 1e-9))
         if callback is not None:
             callback(gen, ts, rep, history)
 
     if tc.checkpoint_dir:
-        _save_checkpoint(tc, ts, history, rep, generator, gen, total_exp, episode_base,
-                         real_in_replay, rl_cfg)
+        with profiling.span("checkpoint"):
+            _save_checkpoint(tc, ts, history, rep, generator, gen, total_exp, episode_base,
+                             real_in_replay, rl_cfg)
     return ts, rep, history
 
 

@@ -30,7 +30,16 @@ for each stream that runs a matmul).  The hand-written kernels count their launc
 replay skips: the capture records what each wrapper counted, puts the counters
 back, and every replay adds those numbers again.  Other counters that a
 step's Python advances join through ``count_per_replay`` (the mesh's
-all_reduces, parallel/mesh.py).
+all_reduces, parallel/mesh.py), and so do the named counters of the tracer
+(utils/profiling.py: the kernels' launches by shape).
+
+Each capture is a ``capture`` span of the tracer, and counts, by graph name,
+into the tracer's counters: ``captures/<name>``, and at every replay
+``replays/<name>`` and ``kernels/<name>``, the kernel nodes the replay ran,
+counted from the captured graph itself (``nodes``; its node types by count
+are kept in the tracer's ``graphs``).  A replay's host time inside the
+launch, which blocks while the card's launch queue is full, goes to the
+tracer's ``launched``.
 
 Graphs are only for CUDA tensors, and a failed capture or replay raises: no
 step quietly runs eagerly instead.  The callers run their steps directly where
@@ -44,12 +53,15 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes
 import dataclasses
+import functools
 import gc
 
 import torch
 
 from marlpde_tpu_torch.kernels import abcn, mlp
+from marlpde_tpu_torch.utils import profiling
 
 # graph replays since the last reset, of every graph
 replays = 0
@@ -78,13 +90,14 @@ def eager():
 
 
 class CudaGraph:
-    """``torch.cuda.CUDAGraph`` behind the three calls ``capture`` makes."""
+    """``torch.cuda.CUDAGraph`` behind the calls ``capture`` makes.  The
+    graph is kept after its instantiation, so that ``nodes`` can read it."""
 
     def __init__(self, device: torch.device):
         if device.type != "cuda":
             raise ValueError(f"[graphs] CUDA graphs take CUDA tensors, not {device}")
         self.device = device
-        self.graph = torch.cuda.CUDAGraph()
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
 
     def register_generator_state(self, generator: torch.Generator):
         self.graph.register_generator_state(generator)
@@ -97,12 +110,90 @@ class CudaGraph:
         with torch.cuda.device(self.device), torch.cuda.stream(side_stream(self.device)):
             self.graph.capture_begin()
             try:
-                return fn()
+                out = fn()
             finally:
                 self.graph.capture_end()
+        # at once, as capture_end does without keep_graph: not at the first replay
+        self.graph.instantiate()
+        return out
+
+    def nodes(self, name: str) -> dict:
+        """{node type: count} of the captured graph ``name``."""
+        return nodes(name, self.graph.raw_cuda_graph())
 
     def replay(self):
         self.graph.replay()
+
+
+# CUgraphNodeType (cuda.h); a child graph's nodes count as its parent's
+_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 5: "empty",
+               6: "wait_event", 7: "event_record", 8: "ext_semas_signal",
+               9: "ext_semas_wait", 10: "mem_alloc", 11: "mem_free", 12: "batch_mem_op",
+               13: "conditional"}
+_CHILD_GRAPH = 4
+
+
+@functools.lru_cache(maxsize=None)
+def _libcuda():
+    """libcuda, bound with ctypes: a runtime cudaGraph_t is libcuda's
+    CUgraph, and a process loads one libcuda whichever runtime torch
+    linked."""
+    lib = ctypes.CDLL("libcuda.so.1")
+    ptr, size = ctypes.c_void_p, ctypes.c_size_t
+    lib.cuGraphGetNodes.argtypes = [ptr, ctypes.POINTER(ptr), ctypes.POINTER(size)]
+    lib.cuGraphNodeGetType.argtypes = [ptr, ctypes.POINTER(ctypes.c_int)]
+    lib.cuGraphChildGraphNodeGetGraph.argtypes = [ptr, ctypes.POINTER(ptr)]
+    for f in (lib.cuGraphGetNodes, lib.cuGraphNodeGetType, lib.cuGraphChildGraphNodeGetGraph):
+        f.restype = ctypes.c_int
+    return lib
+
+
+def _check(status: int, call: str):
+    if status != 0:
+        raise RuntimeError(f"[graphs] {call} failed with CUresult {status}")
+
+
+def _node_total(raw: int) -> int:
+    n = ctypes.c_size_t(0)
+    _check(_libcuda().cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
+    return n.value
+
+
+# {node type: count} by (graph name, node total)
+_NODES: dict = {}
+
+
+def nodes(name: str, raw: int) -> dict:
+    """{node type: count} of the graph ``raw`` captured as ``name``: walked
+    once for each name and node total (a step captured on every call, as the
+    ddp pipeline's are, costs one driver call after its first capture)."""
+    key = (name, _node_total(raw))
+    out = _NODES.get(key)
+    if out is None:
+        out = _NODES[key] = node_types(raw)
+    return out
+
+
+def node_types(raw: int) -> dict:
+    """{node type: count} of the CUDA graph ``raw`` (a cudaGraph_t's
+    address), the nodes of child graphs included."""
+    cuda, n = _libcuda(), ctypes.c_size_t(0)
+    _check(cuda.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    _check(cuda.cuGraphGetNodes(raw, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    out, kind = {}, ctypes.c_int()
+    for node in nodes[:n.value]:
+        _check(cuda.cuGraphNodeGetType(node, ctypes.byref(kind)), "cuGraphNodeGetType")
+        if kind.value == _CHILD_GRAPH:
+            child = ctypes.c_void_p()
+            _check(cuda.cuGraphChildGraphNodeGetGraph(node, ctypes.byref(child)),
+                   "cuGraphChildGraphNodeGetGraph")
+            inner = node_types(child.value)
+        else:
+            inner = {_NODE_TYPES.get(kind.value, f"type {kind.value}"): 1}
+        for name, k in inner.items():
+            out[name] = out.get(name, 0) + k
+    return out
 
 
 # the graph type ``capture`` records into (the CPU tests substitute a stand-in)
@@ -120,13 +211,26 @@ def _counters():
     return [(m, "launches") for m in _COUNTED] + _OTHERS
 
 
-def _counts():
+def _ints():
     return [getattr(m, a) for m, a in _counters()]
 
 
-def _set_counts(counts):
-    for (m, a), n in zip(_counters(), counts):
+def _set_ints(values):
+    for (m, a), n in zip(_counters(), values):
         setattr(m, a, n)
+
+
+def _counts():
+    """Every counter a replay advances: the module counters, in the order of
+    ``_counters``, and a copy of the tracer's named counters."""
+    return _ints(), dict(profiling.TRACER.counters)
+
+
+def _set_counts(counts):
+    ints, named = counts
+    _set_ints(ints)
+    profiling.TRACER.counters.clear()
+    profiling.TRACER.counters.update(named)
 
 
 @dataclasses.dataclass
@@ -134,22 +238,31 @@ class StepGraph:
     """A captured step.  ``out`` is its static output: every replay overwrites
     it.  ``launches`` holds the hand-written kernels' launches in one replay
     (in the order of ``_COUNTED``), ``others`` what one replay adds to the
-    counters of ``count_per_replay`` (in its order)."""
+    counters of ``count_per_replay`` (in its order), ``named`` what it adds
+    to the tracer's named counters, ``kernels`` the graph's kernel nodes."""
 
     name: str
     graph: object
     out: object
     launches: tuple
     others: tuple = ()
+    named: dict = dataclasses.field(default_factory=dict)
+    kernels: int = 0
 
     def replay(self):
         global replays
+        t0 = profiling.clock()
         try:
             self.graph.replay()
         except RuntimeError as e:
             e.add_note(f"[graphs] while replaying {self.name}")
             raise
-        _set_counts([n + k for n, k in zip(_counts(), self.launches + self.others)])
+        profiling.TRACER.launched(profiling.clock() - t0)
+        _set_ints([n + k for n, k in zip(_ints(), self.launches + self.others)])
+        for name, n in self.named.items():
+            profiling.count(name, n)
+        profiling.count(f"replays/{self.name}")
+        profiling.count(f"kernels/{self.name}", self.kernels)
         replays += 1
         return self.out
 
@@ -194,25 +307,34 @@ def capture(name: str, fn, device, generators=()):
     """Run ``fn()`` once (the warm-up, a real step), then capture it.
 
     Returns (the warm-up's result, the ``StepGraph``).  ``generators`` draw
-    ``fn``'s random numbers; each replay advances them."""
+    ``fn``'s random numbers; each replay advances them.  The warm-up, the
+    capture and the count of the graph's nodes are one ``capture`` span."""
     device = torch.device(device)
-    first = _warm_up(fn, device)
-    graph = new_graph(device)
-    for g in generators:
-        graph.register_generator_state(g)
-    before = _counts()
-    try:
-        with _collector_held():
-            out = graph.capture(fn)
-    except BaseException as e:
-        e.add_note(f"[graphs] while capturing {name}")
-        raise
-    finally:
-        # the capture launched nothing: what the wrappers counted is per replay
-        per_replay = tuple(a - b for a, b in zip(_counts(), before))
-        _set_counts(before)
+    with profiling.span("capture", attr=name):
+        first = _warm_up(fn, device)
+        graph = new_graph(device)
+        for g in generators:
+            graph.register_generator_state(g)
+        before = _counts()
+        try:
+            with _collector_held():
+                out = graph.capture(fn)
+        except BaseException as e:
+            e.add_note(f"[graphs] while capturing {name}")
+            raise
+        finally:
+            # the capture launched nothing: what the wrappers counted is per replay
+            ints, named = _counts()
+            per_replay = tuple(a - b for a, b in zip(ints, before[0]))
+            named = {k: n - before[1].get(k, 0) for k, n in named.items()
+                     if n != before[1].get(k, 0)}
+            _set_counts(before)
+        types = graph.nodes(name) if hasattr(graph, "nodes") else {}
+    profiling.TRACER.graphs[name] = types
+    profiling.count(f"captures/{name}")
     k = len(_COUNTED)
-    return first, StepGraph(name, graph, out, per_replay[:k], per_replay[k:])
+    return first, StepGraph(name, graph, out, per_replay[:k], per_replay[k:], named,
+                            types.get("kernel", 0))
 
 
 class Step:

@@ -771,3 +771,120 @@ def test_mesh_update_replays_with_nccl_all_reduces_match_eager_calls(cuda, mode)
     assert int(ts.n_updates) == 2 * n and len(left) == len(right)
     assert all(_same_bits(a, b) for a, b in zip(left, right))
     assert all(_same_bits(m_g[k], m_e[k]) for k in m_e)
+
+
+def _device_kernels(prof) -> list:
+    """Names of the kernels a torch.profiler run saw on the card (no copies,
+    fills, or device-side copies of host ranges)."""
+    events = list(prof.profiler.kineto_results.events())
+    host = {e.name() for e in events if e.device_type() != torch.autograd.DeviceType.CUDA}
+    return [e.name() for e in events
+            if e.device_type() == torch.autograd.DeviceType.CUDA and e.name() not in host
+            and not e.name().startswith(("Memcpy", "Memset"))]
+
+
+@pytest.mark.parametrize("mode", ["experience", "episode"])
+def test_update_graph_kernel_nodes_are_the_eager_kernels(cuda, mode):
+    """The kernel nodes counted from a captured one-update graph are the
+    kernels torch.profiler sees in one eager update from the same state; the
+    tracer's counters hold the capture and add the nodes at each replay."""
+    from marlpde_tpu_torch.train import trainer
+    from marlpde_tpu_torch.utils import graphs, profiling
+    cfg, ts, rep, g = _learner(cuda, mode)
+    ts_e, rep_e, g_e = _copies(ts, rep, g)
+    name = f"1 {mode}-mode updates"
+    counters = profiling.TRACER.counters
+    before = {k: counters.get(f"{k}/{name}", 0) for k in ("captures", "replays", "kernels")}
+    graph, _ = trainer._update_graph(cfg, ts, rep, g, None, None, 1)
+    graph.replay()
+    with graphs.eager():
+        trainer._update(cfg, ts_e, rep_e, g_e)          # the eager path's own first call
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            trainer._update(cfg, ts_e, rep_e, g_e)
+            torch.cuda.synchronize()
+    eager = _device_kernels(prof)
+    nodes = profiling.TRACER.graphs[name]
+    print(f"[tracer] {name}: graph nodes {nodes}, eager kernels {len(eager)}")
+    assert graph.kernels == nodes["kernel"] == len(eager) > 100
+    assert counters[f"captures/{name}"] - before["captures"] == 1
+    assert counters[f"replays/{name}"] - before["replays"] == 1
+    assert counters[f"kernels/{name}"] - before["kernels"] == graph.kernels
+
+
+# the benchmark cells' paths at tiny sizes, updates from the first generation:
+# run 918's (the ABCN env, experience mode at mbsize 8, the cumulative reward
+# scale, the forward trust region, --diag) and run 926's (KS, --fused)
+SYNC_RUNS = {
+    "918": "burger-marl --nagents 4 --specreward --dforce --ic turbulence --NDNS 64 --dt 0.01 "
+           "--T 0.1 --episodelength 5 --numenvs 2 --minibatch experience --mbsize 8 --rstart 5 "
+           "--maxupd 3 --NE 40 --diag --rscale cumulative --trust forward --width 32 "
+           "--testfreq 0 --run 999",
+    "926": "ks --NDNS 64 --N 16 --NA 16 --ndns 2 --episodelength 5 --numenvs 2 --width 32 "
+           "--rstart 10 --fused --maxupd 3 --NE 40 --run 999",
+}
+
+
+@pytest.mark.parametrize("run_flags", sorted(SYNC_RUNS))
+def test_a_steady_graphed_generation_synchronises_only_inside_wait_spans(cuda, monkeypatch,
+                                                                        tmp_path, run_flags):
+    """Under torch.cuda.set_sync_debug_mode("error") outside the tracer's
+    ``wait`` spans, a generation of the graphed CLI run that captures nothing
+    runs to its end: every readback of the loop is a ``wait`` span (as far
+    as the sync debug mode sees synchronisations)."""
+    from marlpde_tpu_torch import run
+    from marlpde_tpu_torch.utils import profiling
+    real = profiling.span
+
+    @contextlib.contextmanager
+    def span(name, *args, **kw):
+        allowed = name == "wait"
+        if allowed:
+            torch.cuda.set_sync_debug_mode(0)
+        try:
+            with real(name, *args, **kw) as s:
+                yield s
+        finally:
+            if allowed:
+                torch.cuda.set_sync_debug_mode("error")
+
+    seen = []
+
+    def callback(gen, ts, rep, history):
+        torch.cuda.set_sync_debug_mode(0)
+        seen.append((gen, sum(n for k, n in profiling.TRACER.counters.items()
+                              if k.startswith("captures/"))))
+        if gen == 2:            # generation 1 captured every graph: 3 runs under the rule
+            torch.cuda.synchronize()
+            monkeypatch.setattr(profiling, "span", span)
+            torch.cuda.set_sync_debug_mode("error")
+
+    monkeypatch.chdir(tmp_path)
+    try:
+        run.main(SYNC_RUNS[run_flags].split(), callback=callback, device=cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert [g for g, _ in seen] == [1, 2, 3, 4]
+    assert seen[0][1] > 0 and seen[1][1] == seen[2][1] == seen[0][1]
+
+
+def test_span_encloses_its_kernels_on_the_profilers_clock(cuda):
+    """A span's host start comes before the card starts the kernels launched
+    inside it, and, closed after a synchronisation, its end after they end:
+    the tracer's clock is the profiler's on the card too."""
+    from marlpde_tpu_torch.utils import profiling
+    tracer = profiling.Tracer()
+    x = torch.randn(512, 512, device=cuda)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with tracer.span("probe") as s:
+            for _ in range(20):
+                x = torch.tanh(x @ x)
+            torch.cuda.synchronize()
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == torch.autograd.DeviceType.CUDA]
+    assert len(events) >= 40
+    assert all(s.start_ns <= e.start_ns() and e.start_ns() + e.duration_ns() <= s.end_ns
+               for e in events)
