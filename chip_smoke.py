@@ -146,6 +146,15 @@ shape of [apg]'s --test stage (APG_HEADS), and both kernels at the shapes
 that only the mesh paths run: [mesh]'s update rows, [mesh-2]'s run-918 CLI at
 5 envs a rank (ABCN B=5; MLP acting, insert and update rows, MESH_ROWS) and
 its dry run's small flagship (ABCN B=1 at N=16; MLP width 32, DRYRUN_ROWS).
+It ends with the experience-mode loss head (rl/vracer_loss.py: two
+launches an update, replacing no TPU kernel) against its plain version,
+forward and backward, at the minibatch and learner config of every
+experience-mode path (HEAD_PATHS: runs 918, 926 and 927, the benchmark's ks
+cell, the [simple] presets and the [variants]): its errors, its time eager
+and inside a graph, the plain chain's both ways and its kernel nodes, its
+byte bound and the timing floor.  Every path's launches include the loss
+head's, held at two an experience-mode update (counted through
+trainer.run_updates) and none elsewhere.
 A [timing] line gives each phase's seconds.
 
 Every training path runs its updates and its collections' macro-steps as
@@ -178,6 +187,7 @@ import dataclasses
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -196,6 +206,8 @@ HBM_BPS = 3.35e12
 FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12
 MLP_TOL = 2e-5      # absolute, as tests/test_pallas.py holds the Pallas MLP
+HEAD_TOL = 1e-6     # the loss head against its plain version, of each tensor's max |plain|
+HEAD_LAUNCHES = 2   # the loss head's launches an experience-mode update
 FAST_OFF_TOL = 1e-4  # relative to each tensor's max |value|: float32, two solvers
 # the run-918 flagship (scripts/tpu_flagship_918.sh)
 RUN_918 = ("burger-marl --nagents 32 --specreward --dforce --ic turbulence --width 128 "
@@ -247,6 +259,14 @@ SIMPLE_RUNS = {
     "advection-simple": "--NE 480 --rstart 150 --maxupd 200",
     "laplace": "--NE 4800 --rstart 1600 --maxupd 200",
 }
+# the loss head's [kernels] rows: the learner config the CLI makes of the
+# flags of every experience-mode path here, and of the benchmark's ks cell
+# (benchmark/configs/ks.json: 32 actions); paths whose loss heads agree
+# (minibatch shape, trust region, temper, bounds, agent coupling) share a row
+HEAD_PATHS = {"run918": RUN_918, "run926": RUN_926, "run927": RUN_927,
+              "ks-cell": "ks --N 32 --NA 32 --ndns 16 --sigma-max 5 --iex 0.001".split(),
+              **{name: [name] + cut.split() for name, cut in SIMPLE_RUNS.items()},
+              **{"variant " + v: v.split() + VARIANT_DEPTH for v in VARIANTS}}
 # the MLP shapes of the [simple] paths: (obs, actions, width, mu_param,
 # sigma_max, iex) of the run scripts (diffusion-simple, -error, -stencil3,
 # advection-simple, laplace), at the acting rows (16 envs x agents) and the
@@ -364,6 +384,51 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
+# experience-mode updates run through trainer.run_updates since the last
+# _reset_launches (_count_experience_updates)
+_experience_updates = 0
+
+
+def _reset_launches():
+    """Set the kernels' launch counters, and the experience-mode updates
+    counted beside them, to 0: just before each path."""
+    global _experience_updates
+    from marlpde_tpu_torch.kernels import abcn, mlp
+    from marlpde_tpu_torch.rl import vracer_loss
+    abcn.launches = mlp.launches = vracer_loss.launches = 0
+    _experience_updates = 0
+
+
+def _launches():
+    """The kernels' launches since ``_reset_launches``, and the
+    experience-mode updates run since: the loss head's launches are
+    HEAD_LAUNCHES times those."""
+    from marlpde_tpu_torch.kernels import abcn, mlp
+    from marlpde_tpu_torch.rl import vracer_loss
+    return dict(abcn_macro_step=abcn.launches, mlp_forward=mlp.launches,
+                vracer_loss=vracer_loss.launches, experience_updates=_experience_updates)
+
+
+def _no_launches():
+    return dict.fromkeys(("abcn_macro_step", "mlp_forward", "vracer_loss",
+                          "experience_updates"), 0)
+
+
+def _count_experience_updates():
+    """Wrap trainer.run_updates (which the trainer, the mesh and the CLI call
+    through the module) to count the experience-mode updates it runs."""
+    from marlpde_tpu_torch.train import trainer
+    run_updates = trainer.run_updates
+
+    def counted(rl_cfg, ts, rep, generator, n, *args, **kw):
+        global _experience_updates
+        if rl_cfg.minibatch_mode == "experience":
+            _experience_updates += n
+        return run_updates(rl_cfg, ts, rep, generator, n, *args, **kw)
+
+    trainer.run_updates = counted
+
+
 def median_ms(fn, n=20):
     """Device time of one call of ``fn``: CUDA events, median of ``n`` calls.
     A spin kernel holds the stream while the call is enqueued, so the events
@@ -445,6 +510,119 @@ def _abcn_row(args, kw, label):
                                f"{rel_err:.3e}")
     return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by)
+
+
+def loss_head_bound(n, na, A):
+    """Bound in ms of one loss-head call, forward and backward (bytes): its
+    inputs read once (the actions and both policies' mu and sigma, 5 n na A
+    floats; V, rewards and vtg_next, 3 n na) and its outputs written once
+    (rho and the flags, 5 bytes a row; the 9 metrics; dL/dV, dL/dmu,
+    dL/dsigma).  Its operations, two log densities with two log_ndtr each an
+    element, take less time than that on the card's float32 units."""
+    R, E = n * na, n * na * A
+    nbytes = 4 * (5 * E + 3 * R) + 5 * R + 36 + 4 * (R + 2 * E)
+    return 1e3 * nbytes / HBM_BPS
+
+
+def _head_configs(dev):
+    """{tags: learner config} of HEAD_PATHS, one entry for the paths whose
+    loss heads agree."""
+    from marlpde_tpu_torch import run
+    out = {}
+    for tag, argv in HEAD_PATHS.items():
+        _, cfg, _ = run.make_workload(run.build_parser().parse_args(argv), device=dev)
+        check(cfg.minibatch_mode == "experience", f"loss head {tag}: {cfg.minibatch_mode} mode")
+        key = (cfg.mini_batch_size, cfg.num_agents, cfg.act_dim, cfg.trust_region,
+               cfg.cutoff_dim_norm, cfg.multi_agent_correlation, cfg.multi_agent_relationship,
+               cfg.action_low, cfg.action_high, cfg.gamma, cfg.value_coef, cfg.reward_floor,
+               cfg.scaled_reward_floor)
+        tags, _ = out.get(key, ((), cfg))
+        out[key] = (tags + (tag,), cfg)
+    return {", ".join(tags): cfg for tags, cfg in out.values()}
+
+
+def _loss_head_row(dev, tag, cfg, floor_ms):
+    """The loss head (rho_terms, then experience_loss: the loss's metrics and
+    its gradients) against its plain version (autograd through the loss) at
+    one path's minibatch and learner config: near and far rows, actions at
+    both bounds; the errors, the times eager and as a graph replay, kernel
+    nodes."""
+    import numpy as np
+    import torch
+    from marlpde_tpu_torch.rl import vracer_loss as VL
+    from marlpde_tpu_torch.utils import graphs
+
+    n, na, A = shape = (cfg.mini_batch_size, cfg.num_agents, cfg.act_dim)
+    lb, ub = cfg.action_low, cfg.action_high
+    mid, half = 0.5 * (lb + ub), 0.5 * (ub - lb)
+    rng = np.random.default_rng(n * na * A)
+    mu = mid + rng.standard_normal(shape) * 0.08 * half
+    sigma = rng.uniform(0.01, 0.12, shape) * half
+    far = rng.random((n, 1, 1)) < 0.3
+    near = 0.01 * min(1.0, np.sqrt(32 / A))   # a near row's joint ratio stays near 1
+    mu_b = mu + rng.standard_normal(shape) * np.where(far, 0.1, 0.2 * near) * half
+    sigma_b = sigma * np.where(far, rng.uniform(0.7, 1.4, shape),
+                               rng.uniform(1 - near, 1 + near, shape))
+    actions = np.clip(mu_b + sigma_b * rng.standard_normal(shape), lb, ub)
+    actions.reshape(-1)[rng.choice(actions.size, 4, replace=False)] = [lb, lb, ub, ub]
+    f = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
+    rows = dict(actions=f(actions), mu=f(mu_b), sigma=f(sigma_b),
+                rewards=f(rng.standard_normal((n, na)) * 0.3))
+    out = [f(rng.standard_normal((n, na))).requires_grad_(True), f(mu).requires_grad_(True),
+           f(sigma).requires_grad_(True)]
+    beta, scale, vtg_next = f(0.3), f(0.7), f(rng.standard_normal((n, na)))
+    cutoff = f(4.0)
+    inv_cutoff = torch.reciprocal(cutoff)
+    mu_d, sigma_d = out[1].detach(), out[2].detach()
+
+    def op():
+        rho, off, terms = VL.rho_terms(cfg, rows, mu_d, sigma_d, scale, cutoff, inv_cutoff)
+        metrics, (_, grads) = VL.experience_loss(cfg, beta, out, rows, vtg_next, terms)
+        return (rho, off, metrics["loss"], *grads)
+
+    def plain():
+        rho, _ = VL.joint_rho(cfg, rows["actions"], mu_d, sigma_d, rows["mu"], rows["sigma"])
+        off = ~((rho > inv_cutoff) & (rho < cutoff))
+        loss, _ = VL.loss_experience(cfg, beta, out, rows, vtg_next, scale, cutoff)
+        return (rho, off, loss.detach(), *torch.autograd.grad(loss, out))
+
+    before = VL.launches
+    got = op()
+    launched = VL.launches - before
+    want = plain()
+    torch.cuda.synchronize()
+    errs = {name: ((g - w).abs().max() / w.abs().max()).item()
+            for name, g, w in zip(("rho", "dV", "dmu", "dsigma"), got[:1] + got[3:],
+                                  want[:1] + want[3:])}
+    loss_err = abs(float(got[2]) - float(want[2])) / max(abs(float(want[2])), 1.0)
+    same = sum(int((g == w).sum()) for g, w in zip(got[:2] + got[3:], want[:2] + want[3:]))
+    total = sum(g.numel() for g in got[:2] + got[3:])
+    check(torch.equal(got[1], want[1]), f"loss head {tag}: off-policy flags differ")
+    check(launched == HEAD_LAUNCHES, f"loss head {tag}: {launched} launches, not {HEAD_LAUNCHES}")
+    ms, plain_ms = median_ms(op), median_ms(plain)
+    _, g_op = graphs.capture(f"loss head {tag}", op, dev)
+    _, g_plain = graphs.capture(f"plain loss head {tag}", plain, dev)
+    graph_ms, plain_graph_ms = median_ms(g_op.replay), median_ms(g_plain.replay)
+    bound_ms = loss_head_bound(n, na, A)
+    print(f"[kernels] vracer_loss {tag}: {n}x{na}x{A} ({cfg.trust_region}, temper "
+          f"{VL.rho_temper(cfg):.4g}, bounds [{lb:g}, {ub:g}], {VL.lanes(A)} lanes an agent): "
+          f"max |kernel - plain| over max |plain| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (tolerance {HEAD_TOL:g}), loss {loss_err:.3e} of max(|plain|, 1); {same} of "
+          f"{total} outputs bitwise equal, flags equal; {launched} launches; kernels {ms:.4f} ms "
+          f"eager, {graph_ms:.4f} ms in a graph ({g_op.kernels} kernel nodes); plain chain, "
+          f"forward and backward, {plain_ms:.4f} ms eager, {plain_graph_ms:.4f} ms in a graph "
+          f"({g_plain.kernels} kernel nodes); bound {bound_ms:.7f} ms (bytes), "
+          f"{100 * bound_ms / graph_ms:.3f}% of it in a graph; timing floor {floor_ms:.5f} ms a "
+          f"kernel; replaces no TPU kernel (added because the update is launch-bound)")
+    check(all(v <= HEAD_TOL for v in errs.values()) and loss_err <= HEAD_TOL,
+          f"loss head {tag} disagrees with its plain version: {errs}, loss {loss_err}")
+    return dict(name="vracer_loss", shape=tag, minibatch=list(shape), route="cuda",
+                source="marlpde_tpu_torch/csrc/vracer_loss.cu", replaces=None,
+                library_ms=None, max_rel_err=max(errs.values()), ms=ms, graph_ms=graph_ms,
+                plain_ms=plain_ms, plain_graph_ms=plain_graph_ms, bound_ms=bound_ms,
+                bound_by="bytes", kernel_nodes=g_op.kernels, plain_kernel_nodes=g_plain.kernels,
+                launches_per_call=launched, floor_ms=floor_ms)
 
 
 def phase_kernels(env, dev):
@@ -607,7 +785,8 @@ def phase_kernels(env, dev):
                            for key in ("ms", "plain_ms", "bound_ms")},
                         **{f"{key}_{tag}": row[key] for tag, row in new_shapes.items()
                            for key in ("ms", "plain_ms", "bound_ms")}))
-    return results
+    head = [_loss_head_row(dev, tag, cfg, floor_ms) for tag, cfg in _head_configs(dev).items()]
+    return results, head
 
 
 def phase_main_path(env):
@@ -643,11 +822,10 @@ def phase_main_path(env):
         check(d_mlp >= env.episode_length,
               f"gen {gen}: mlp kernel launched {d_mlp} times, expected >= {env.episode_length}")
 
-    abcn.launches = 0
-    mlp.launches = 0
+    _reset_launches()
     mlp.w2_splits = 0
     ts, rep, hist = trainer.train(env, rl_cfg, tc, verbose=False, callback=report)
-    launches = dict(abcn_macro_step=abcn.launches, mlp_forward=mlp.launches)
+    launches = _launches()
 
     check(len(hist["gen"]) == GENERATIONS, f"ran {len(hist['gen'])} generations")
     check(hist["blowups"][0] == 0, f"generation 1 had {hist['blowups'][0]} blowups")
@@ -710,7 +888,6 @@ def phase_lockstep(dev, smi):
     """Run 918 on the card in lockstep with the JAX package's CPU run of
     scripts/lockstep_918.npz; returns the kernels' launches on this path."""
     import numpy as np
-    from marlpde_tpu_torch.kernels import abcn, mlp
 
     L = _lockstep_module()
     with np.load(L.NPZ) as d:
@@ -718,11 +895,10 @@ def phase_lockstep(dev, smi):
     meta = json.loads(str(ref["meta"]))
     check(any(k.startswith("cpu/") for k in ref), f"{L.NPZ} holds no CPU float32 yardstick")
     argv = meta["argv"] + ["--seed", str(meta["weights_seed"])]
-    abcn.launches = 0
-    mlp.launches = 0
+    _reset_launches()
     arrays, env, seconds = L.torch_run(argv, L.weights_918(meta["weights_seed"]), device=dev,
                                        **L.run_kwargs(meta))
-    launches = dict(abcn_macro_step=abcn.launches, mlp_forward=mlp.launches)
+    launches = _launches()
     got = L.strip(arrays, "torch")
     report = L.compare_918(got, ref)
     s = report["summary"]
@@ -1145,8 +1321,7 @@ def _cli(argv, tag, also=None):
             also(gen, ts, rep, hist)
 
     buf = io.StringIO()
-    abcn.launches = 0
-    mlp.launches = 0
+    _reset_launches()
     with contextlib.redirect_stdout(buf):
         ts, rep, hist = run.main(argv, callback=report)
     lines = buf.getvalue().splitlines()
@@ -1162,7 +1337,7 @@ def _cli(argv, tag, also=None):
     out = json.loads(json_lines[0])
     check(out["workload"] == argv[0] and out["generations"] == hist["gen"][-1]
           and out["final_mean_return"] == hist["mean_return"][-1], f"{tag}: JSON line {out}")
-    return ts, rep, hist, rows, dict(abcn_macro_step=abcn.launches, mlp_forward=mlp.launches)
+    return ts, rep, hist, rows, _launches()
 
 
 def _check_generations(tag, hist, rows, first_gen, abcn=True):
@@ -1214,6 +1389,10 @@ def phase_cli(workdir):
 
     ts, rep, hist, rows, launches = _cli(RUN_918 + ["--NE", "25000", "--testfreq", "5"], "cli")
     _check_generations("cli", hist, rows, 1)
+    print(f"[cli] loss head launches {launches['vracer_loss']} over {sum(hist['updates'])} "
+          f"updates")
+    check(launches["experience_updates"] == sum(hist["updates"]) == 2500
+          and launches["vracer_loss"] == HEAD_LAUNCHES * 2500, f"cli: launches {launches}")
     # korali ledger: rstart 20000, expperu 0.5, cap 2500, 5000 live steps a generation
     check(hist["updates"] == [0, 0, 0, 0, 2500], f"cli updates {hist['updates']}")
     check(ts.n_updates == 2500, f"cli n_updates {int(ts.n_updates)}")
@@ -1338,12 +1517,10 @@ def _main_json(argv, tag):
     """``run.main(argv)`` with its standard output captured and echoed: returns
     (what main returns, the one JSON line it printed, the kernel launches)."""
     from marlpde_tpu_torch import run
-    from marlpde_tpu_torch.kernels import abcn, mlp
     import torch
 
     buf = io.StringIO()
-    abcn.launches = 0
-    mlp.launches = 0
+    _reset_launches()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         out = run.main(argv)
@@ -1354,8 +1531,7 @@ def _main_json(argv, tag):
         print(f"[{tag}] | {ln}")
     json_lines = [json.loads(ln) for ln in lines if ln.startswith("{")]
     check(len(json_lines) == 1, f"{tag}: the CLI printed {len(json_lines)} JSON lines")
-    return out, json_lines[0], seconds, dict(abcn_macro_step=abcn.launches,
-                                             mlp_forward=mlp.launches)
+    return out, json_lines[0], seconds, _launches()
 
 
 def _finite(values):
@@ -1369,7 +1545,7 @@ def phase_cli_test(workdir):
     import numpy as np
 
     res = os.path.join(workdir, "_result_burger-marl_0")
-    total = dict(abcn_macro_step=0, mlp_forward=0)
+    total = _no_launches()
     for extra in ([], ["--best"]):
         tag = "cli-test" + ("-best" if extra else "")
         summary, line, seconds, launches = _main_json(RUN_918 + ["--test"] + extra, tag)
@@ -1391,7 +1567,7 @@ def phase_cli_test(workdir):
         check(figures, f"{tag}: neither the figures nor test_panels.npz")
         # evaluate: 500 ABCN launches (B=8) and 500 MLP; the pool sweep and the
         # comparison step the per-env env, 500 MLP launches each
-        check(launches == dict(abcn_macro_step=500, mlp_forward=1500),
+        check(launches == dict(_no_launches(), abcn_macro_step=500, mlp_forward=1500),
               f"{tag}: launches {launches}")
         total = {k: total[k] + launches[k] for k in total}
         print(f"[{tag}] {seconds:.3f} s; test_mean_return {summary['test_mean_return']:.6f}, "
@@ -1446,7 +1622,7 @@ def phase_ks(workdir):
 
     res = os.path.join(workdir, "_result_ks_926")
     _check_best("ks", res, hist)
-    test_launches = dict(abcn_macro_step=0, mlp_forward=0)
+    test_launches = _no_launches()
     for extra in ([], ["--best"]):
         tag = "ks-test" + ("-best" if extra else "")
         summary, line, seconds, launches_t = _main_json(RUN_926 + ["--test"] + extra, tag)
@@ -1560,7 +1736,7 @@ def phase_fd(workdir):
 
     res = os.path.join(workdir, "_result_burger-fd_927")
     _check_best("fd", res, hist)
-    test_launches = dict(abcn_macro_step=0, mlp_forward=0)
+    test_launches = _no_launches()
     for extra in ([], ["--best"]):
         tag = "fd-test" + ("-best" if extra else "")
         summary, line, seconds, launches_t = _main_json(RUN_927 + ["--test"] + extra, tag)
@@ -1683,10 +1859,9 @@ def phase_variants():
     import torch
     from marlpde_tpu_torch import run
     from marlpde_tpu_torch.envs import registry
-    from marlpde_tpu_torch.kernels import abcn, mlp
     from marlpde_tpu_torch.train import trainer
 
-    total = dict(abcn_macro_step=0, mlp_forward=0)
+    total = _no_launches()
 
     def add(tag, launches):
         check(launches["mlp_forward"] > 0 and launches["abcn_macro_step"] == 0,
@@ -1736,12 +1911,11 @@ def phase_variants():
         "burger --dforce --specreward --ic turbulence --nunoise --rstart 800 --maxupd 50".split()
         + VARIANT_DEPTH))
     env = registry.make_env("burger-lockstep", cfg=pool_env.cfg)
-    abcn.launches = 0
-    mlp.launches = 0
+    _reset_launches()
     t0 = time.perf_counter()
     ts, rep, hist = trainer.train(env, rl_cfg, tc, verbose=False)
     torch.cuda.synchronize()
-    launches = dict(abcn_macro_step=abcn.launches, mlp_forward=mlp.launches)
+    launches = _launches()
     check(hist["gen"] == [1, 2] and _finite(hist["mean_return"]) and hist["blowups"] == [0, 0],
           f"variants burger-lockstep: returns {hist['mean_return']}, blowups {hist['blowups']}")
     _check_state_on_card("variants burger-lockstep", ts, rep)
@@ -1791,8 +1965,7 @@ def phase_simple(workdir):
     the launches of the training runs and of the test stages."""
     import glob
 
-    train_l, test_l = dict(abcn_macro_step=0, mlp_forward=0), dict(abcn_macro_step=0,
-                                                                   mlp_forward=0)
+    train_l, test_l = _no_launches(), _no_launches()
     for i, (name, cut) in enumerate(SIMPLE_RUNS.items()):
         argv = [name] + cut.split() + ["--run", str(70 + i)]
         tag = "simple " + name
@@ -2175,7 +2348,7 @@ def phase_apg():
                    "final_mean_return": hist["mean_return"][-1], "iterations": 2},
           f"[apg] JSON line {line}")
     check(rep is None and _finite(hist["mean_return"]), f"[apg] returns {hist['mean_return']}")
-    check(launches_train == dict(abcn_macro_step=0, mlp_forward=0),
+    check(launches_train == _no_launches(),
           f"[apg] training launched a kernel: {launches_train}")
     # the same generator draws the same initial weights as train_apg's
     args = run.build_parser().parse_args(RUN_APG)
@@ -2509,7 +2682,6 @@ def phase_ddp(dev):
     import numpy as np
     import torch
     from marlpde_tpu_torch.ddp import pipeline
-    from marlpde_tpu_torch.kernels import abcn, mlp
     from marlpde_tpu_torch.solvers import closures
 
     f64 = torch.float64
@@ -2528,10 +2700,9 @@ def phase_ddp(dev):
     # the first run builds the cuFFT plans and the libraries' handles
     first = _ddp_card(cfg, u0, draws, net, perms, dev, False)[-1]
     runs = {"eager": _ddp_card(cfg, u0, draws, net, perms, dev, True)}
-    abcn.launches = 0
-    mlp.launches = 0
+    _reset_launches()
     runs["graphed"] = _ddp_card(cfg, u0, draws, net, perms, dev, False)
-    launches = dict(abcn_macro_step=abcn.launches, mlp_forward=mlp.launches)
+    launches = _launches()
     (U, F, u_bar, pi, f_bar, model, uu, m2, times) = runs["graphed"]
     tr, te = slice(0, 150), slice(150, 200)
     start = 190
@@ -2780,7 +2951,10 @@ def phase_mesh2(workdir):
     check(out.stderr.count("experience-mode OK") == 2 and out.stderr.count("episode-mode OK") == 2,
           "mesh-2: a mode or a rank did not pass")
     check(all(r["mlp_forward"] > 0 for r in verdict["launches"]), "mesh-2: MLP not launched")
-    total = {k: sum(r[k] for r in verdict["launches"]) for k in verdict["launches"][0]}
+    # each rank's launches and experience-mode updates (the dry run's, then the
+    # CLI's: run 918's flags, experience mode)
+    ranks = [dict(r, experience_updates=u)
+             for r, u in zip(verdict["launches"], verdict["experience_updates"])]
     out, verdict = dryrun("mesh-2-cli", ["--cli", *RUN_MESH2])
     lines = verdict["json_lines"]
     check(lines[1] == [] and len(lines[0]) == 1 and lines[0][0]["mesh_devices"] == 2
@@ -2790,17 +2964,20 @@ def phase_mesh2(workdir):
           f"mesh-2-cli: digests {verdict['digests']}, updates {verdict['n_updates']}")
     check(all(r["abcn_macro_step"] >= 1000 and r["mlp_forward"] >= 1000
               for r in verdict["launches"]), f"mesh-2-cli: launches {verdict['launches']}")
+    ranks += [dict(r, experience_updates=u)
+              for r, u in zip(verdict["launches"], verdict["n_updates"])]
     print(f"[mesh-2-cli] both ranks' train states equal bit for bit after "
           f"{verdict['n_updates'][0]} updates: {verdict['digests'][0][:16]}; seconds since "
           f"the first generation began, after each, by rank {verdict['wall_time']}")
-    return {k: total[k] + sum(r[k] for r in verdict["launches"]) for k in total}
+    check(all(r["vracer_loss"] == HEAD_LAUNCHES * r["experience_updates"] > 0 for r in ranks),
+          f"mesh-2: loss head launches by rank and run {ranks}")
+    return {k: sum(r[k] for r in ranks) for k in ranks[0]}
 
 
 def ptxas_by_instantiation(log, kernel, want):
     """{template argument: (registers, spill store bytes, spill load bytes)}
     of each instantiation of the kernel template ``kernel`` in ptxas's -v
     report; ``want`` lists the template arguments that must be there."""
-    import re
     out = {}
     for block in log.split("Compiling entry function")[1:]:
         n = re.search(kernel + r"ILi(\d+)E", block)
@@ -2832,11 +3009,17 @@ def main() -> int:
     dev = resolve_device("cuda")
 
     t0 = time.perf_counter()
-    build.build_all(("abcn", "mlp"))
-    build.load("abcn")
-    build.load("mlp")
-    print(f"[build] abcn.cu and mlp.cu built (in parallel) and loaded in "
+    build.build_all(("abcn", "mlp", "vracer_loss"))
+    for name in ("abcn", "mlp", "vracer_loss"):
+        build.load(name)
+    print(f"[build] abcn.cu, mlp.cu and vracer_loss.cu built (in parallel) and loaded in "
           f"{time.perf_counter() - t0:.2f} s")
+    head_log = build.build_logs["vracer_loss"]
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", head_log)]
+    spills = [int(a) + int(b) for a, b in
+              re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", head_log)]
+    print(f"[build] vracer_loss: {len(regs)} kernel instantiations, at most {max(regs)} "
+          f"registers, {sum(spills)} bytes of spill stores and loads in all")
     mlp_ptxas = ptxas_by_instantiation(build.build_logs["mlp"], "mlp_forward_kernel",
                                        range(32, 257, 32))
     print("[build] mlp narrow route: " + ", ".join(
@@ -2881,7 +3064,8 @@ def main() -> int:
     def mark(name):
         marks.append((name, time.perf_counter()))
 
-    kernels = phase_kernels(env, dev)
+    _count_experience_updates()
+    kernels, head_rows = phase_kernels(env, dev)
     mark("kernels")
     ts, rep, rl_cfg, launches_main = phase_main_path(env)
     mark("main")
@@ -2982,9 +3166,24 @@ def main() -> int:
         check(all(want(p, n) for p, n in k["launches_by_path"].items()),
               f"{k['name']} launches by path {k['launches_by_path']}")
 
+    # the loss head: HEAD_LAUNCHES a path's experience-mode updates, which run
+    # on every VRACER training path but the main path (episode mode) and
+    # [cli-w256] (one generation, before the replay starts); none in APG, in
+    # the --test stages, in CMA-ES or in the ddp pipeline
+    print("[launches] loss head by path (launches, experience-mode updates): " + json.dumps(
+        {p: [c["vracer_loss"], c["experience_updates"]] for p, c in by_path.items()}))
+    experience = ("cli", "ks", "fd", "variants", "simple", "bf16", "mesh", "mesh2", "lockstep")
+    check(all(c["vracer_loss"] == HEAD_LAUNCHES * c["experience_updates"]
+              and (c["experience_updates"] > 0) == (p in experience) for p, c in by_path.items()),
+          "loss head launches by path: "
+          + json.dumps({p: [c["vracer_loss"], c["experience_updates"]] for p, c in by_path.items()}))
+    for row in head_rows:
+        row["launches"] = launches_cli["vracer_loss"]
+        row["launches_by_path"] = {p: c["vracer_loss"] for p, c in by_path.items()}
+
     print("[timing] seconds per phase: " + json.dumps(
         {name: round(t - prev, 3) for (_, prev), (name, t) in zip(marks, marks[1:])}))
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels + head_rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

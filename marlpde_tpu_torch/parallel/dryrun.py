@@ -12,7 +12,8 @@ LOCAL_WORLD_SIZE, MASTER_ADDR, MASTER_PORT on localhost) and an empty
 PYTHONPATH.  It waits for them, kills the others as soon as one fails, writes
 each rank's output to standard error and prints one JSON line:
 {"ok", "processes", "generations", "global_devices", "device", "launches"},
-with each rank's kernel launches (the counters are per process).
+with each rank's kernel launches (the counters are per process); the dry
+run proper adds each rank's experience-mode updates ("experience_updates").
 
 The dry run proper: every rank runs 3 generations of the small flagship
 (N_dns 64, 16-point LES, 4 agents, 5 macro-steps, width 32), one env and two
@@ -129,6 +130,7 @@ def parent(args) -> int:
         result["wall_time"] = [r and r["wall_time"] for r in reports]
     else:
         result["generations"] = N_GEN
+        result["experience_updates"] = [r and r["experience_updates"] for r in reports]
     print(json.dumps(result))
     return 0 if ok else 1
 
@@ -146,7 +148,8 @@ def _digest(ts) -> str:
     return h.hexdigest()
 
 
-def _dryrun(mesh, out: str):
+def _dryrun(mesh, out: str) -> int:
+    """The dry run on this rank; returns its experience-mode updates."""
     import torch
 
     from marlpde_tpu_torch.envs import registry
@@ -165,6 +168,8 @@ def _dryrun(mesh, out: str):
         _check(all(map(math.isfinite, hist["mean_return"])),
                f"[{mode}] returns {hist['mean_return']}")
         _check(ts.n_updates > 0, f"[{mode}] no gradient updates ran (replay never warmed)")
+        if mode == "experience":
+            experience_updates = int(ts.n_updates)
         digests = mesh.all_gather_object(_digest(ts))
         _check(len(set(digests)) == 1, f"[{mode}] train state diverged across ranks: {digests}")
         filled = mesh.all_gather_object(rep.cursor if mode == "experience" else rep.filled)
@@ -184,6 +189,7 @@ def _dryrun(mesh, out: str):
               f"equal bit for bit across ranks, replay shards filled {filled}, orbax (DCP) "
               f"checkpoint restored bit for bit, mean_return {hist['mean_return'][-1]:.5f}",
               flush=True)
+    return experience_updates
 
 
 def rank_main(args) -> int:
@@ -192,6 +198,7 @@ def rank_main(args) -> int:
 
     from marlpde_tpu_torch.kernels import abcn, mlp
     from marlpde_tpu_torch.parallel import mesh as pmesh
+    from marlpde_tpu_torch.rl import vracer_loss
 
     if args.device == "cpu":
         torch.set_num_threads(1)
@@ -202,11 +209,12 @@ def rank_main(args) -> int:
         report.update(digest=_digest(ts), n_updates=int(ts.n_updates), wall_time=hist["wall_time"])
     else:
         try:
-            _dryrun(pmesh.make_mesh(args.device), args.out)
+            report["experience_updates"] = _dryrun(pmesh.make_mesh(args.device), args.out)
         finally:
             if dist.is_initialized():
                 dist.destroy_process_group()
-    report["launches"] = {"abcn_macro_step": abcn.launches, "mlp_forward": mlp.launches}
+    report["launches"] = {"abcn_macro_step": abcn.launches, "mlp_forward": mlp.launches,
+                          "vracer_loss": vracer_loss.launches}
     print(REPORT + json.dumps(report), flush=True)
     return 0
 

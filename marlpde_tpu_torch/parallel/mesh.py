@@ -301,7 +301,7 @@ def run_generations(env: Env, rl_cfg, mesh: Mesh, envs_per_device: int,
     W = mesh.world
     if mesh.device.type == "cuda":
         if mesh.rank == 0:
-            build.build_all(("abcn", "mlp"))
+            build.build_all(("abcn", "mlp", "vracer_loss"))
         mesh.barrier()
     gen_fn, init_rep = make_sharded_generation(env, rl_cfg, mesh, envs_per_device,
                                                updates_per_gen)

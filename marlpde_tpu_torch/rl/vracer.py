@@ -29,7 +29,10 @@ In PyTorch's idiom the train state holds the ``VracerNet`` module and its
 the update counter and the replay in place, and return the same state.  Every
 forward that needs no gradient (acting, the insert-time V(s), the V(s_T)
 bootstraps) goes through the MLP op (kernels/mlp.py); the losses
-differentiate the module.  The update counter lives on the device, as in the
+differentiate the module.  The experience-mode loss head, from the module's
+outputs to their gradients, is the loss-head op (rl/vracer_loss.py):
+``rho_terms`` before the metadata refresh, ``experience_loss`` after the
+retrace refresh.  The update counter lives on the device, as in the
 JAX package, and the annealed cutoff and learning rate are computed there, so
 an update makes no device readback and reads no host value that changes: the
 trainer replays it as a CUDA graph (utils/graphs.py).  On the card Adam is
@@ -45,7 +48,7 @@ import torch
 
 from marlpde_tpu_torch.kernels import mlp
 from marlpde_tpu_torch.rl import distributions as D
-from marlpde_tpu_torch.rl import networks, replay_flat, running_stats
+from marlpde_tpu_torch.rl import networks, replay_flat, running_stats, vracer_loss
 from marlpde_tpu_torch.utils import profiling
 
 
@@ -135,19 +138,6 @@ def make_net(cfg: VracerConfig, dtype=torch.float32, device=None,
                               init_noise=cfg.init_noise, sigma_max=cfg.sigma_max,
                               mu_param=cfg.mu_param, dtype=dtype, device=device,
                               generator=generator)
-
-
-def _joint_dims(cfg: VracerConfig) -> int:
-    return cfg.act_dim * (cfg.num_agents if (cfg.multi_agent_correlation
-                                             and cfg.num_agents > 1) else 1)
-
-
-def _rho_temper(cfg: VracerConfig) -> float:
-    """Exponent applied to the joint importance weight under cutoff_dim_norm
-    (vracer.py:217-223); 1.0 otherwise."""
-    if not cfg.cutoff_dim_norm:
-        return 1.0
-    return 1.0 / float(np.sqrt(_joint_dims(cfg)))
 
 
 def make_optimizer(cfg: VracerConfig, net: networks.VracerNet) -> torch.optim.Adam:
@@ -295,12 +285,6 @@ def _vtrace(V, rewards, rho, mask, gamma, bootstrap=None):
     return vtg, adv
 
 
-def _trust_kl(cfg: VracerConfig, mu_b, sigma_b, mu, sigma):
-    if cfg.trust_region == "jeffreys":
-        return D.kl_jeffreys(mu_b, sigma_b, mu, sigma)
-    return D.kl_normal(mu_b, sigma_b, mu, sigma)
-
-
 def _loss(cfg: VracerConfig, net: networks.VracerNet, ts: TrainState, batch, cutoff):
     """Episode-minibatch VRACER loss (vracer.py:394-467); differentiates
     ``net`` itself, never the MLP op."""
@@ -321,7 +305,7 @@ def _loss(cfg: VracerConfig, net: networks.VracerNet, ts: TrainState, batch, cut
     log_ratio = logp - logp_b
     if cfg.multi_agent_correlation and cfg.num_agents > 1:
         log_ratio = log_ratio.sum(-1, keepdim=True).expand(log_ratio.shape)
-    log_ratio = torch.clamp(log_ratio * _rho_temper(cfg), -20.0, 20.0)
+    log_ratio = torch.clamp(log_ratio * vracer_loss.rho_temper(cfg), -20.0, 20.0)
     rho = torch.exp(log_ratio)
     near = (rho > 1.0 / cutoff) & (rho < cutoff)
 
@@ -350,7 +334,7 @@ def _loss(cfg: VracerConfig, net: networks.VracerNet, ts: TrainState, batch, cut
     pg_w = (torch.minimum(rho, cutoff) * adv * near).detach()
     pg_loss = -torch.sum(w * pg_w * logp) / denom
 
-    kl = _trust_kl(cfg, batch["mu"], batch["sigma"], mu, sigma)
+    kl = vracer_loss.trust_kl(cfg, batch["mu"], batch["sigma"], mu, sigma)
     far = (~near).to(kl.dtype)
     kl_loss = torch.sum(w * far * kl) / denom
 
@@ -369,30 +353,6 @@ def _sanitized_final_V(cfg: VracerConfig, ts: TrainState, final_obs):
     fin = torch.nan_to_num(final_obs, nan=0.0, posinf=cfg.obs_stat_bound,
                            neginf=-cfg.obs_stat_bound)
     return policy_apply(cfg, ts, fin)[0]
-
-
-def _rescale_rewards(cfg: VracerConfig, rewards, scale):
-    """Floor, divide by the reward-rescaling sigma, bound in scaled units, and
-    pool to the team mean under Cooperation (vracer.py:479-487).  Rewards read
-    from the float32 replay divide by a float64 scale in float64, as in JAX
-    (``running_stats.promoted``)."""
-    rewards = torch.clamp(running_stats.promoted(rewards, scale), min=cfg.reward_floor) / scale
-    rewards = torch.clamp(rewards, min=cfg.scaled_reward_floor)
-    if cfg.multi_agent_relationship == "cooperation":
-        rewards = rewards.mean(-1, keepdim=True).expand(rewards.shape)
-    return rewards
-
-
-def _joint_rho(cfg: VracerConfig, actions, mu, sigma, mu_b, sigma_b):
-    """Importance weight pi_cur/pi_behavior per (.., na) and log pi_cur; with
-    Multi Agent Correlation the product over agents is shared."""
-    logp = D.joint_log_prob(actions, mu, sigma, cfg.action_low, cfg.action_high)
-    logp_b = D.joint_log_prob(actions, mu_b, sigma_b, cfg.action_low, cfg.action_high)
-    log_ratio = logp - logp_b
-    if cfg.multi_agent_correlation and cfg.num_agents > 1:
-        log_ratio = log_ratio.sum(-1, keepdim=True).expand(log_ratio.shape)
-    log_ratio = torch.clamp(log_ratio * _rho_temper(cfg), -20.0, 20.0)
-    return torch.exp(log_ratio), logp
 
 
 def _insert_scale(cfg: VracerConfig, ts: TrainState, frep, rewards=None, mask=None,
@@ -423,7 +383,7 @@ def flat_insert(cfg: VracerConfig, ts: TrainState, frep, batch, group=None):
     live-buffer scale is that of every rank's shard and batch."""
     V = policy_apply(cfg, ts, batch["obs"])[0]                       # (B, T, na)
     scale = _insert_scale(cfg, ts, frep, batch["rewards"], batch["mask"], group)
-    rewards = _rescale_rewards(cfg, batch["rewards"], scale)
+    rewards = vracer_loss.rescale_rewards(cfg, batch["rewards"], scale)
     boot = (_sanitized_final_V(cfg, ts, batch["final_obs"])
             * batch["truncated"].to(V.dtype)[..., None])
     mask = batch["mask"][..., None].expand(rewards.shape)
@@ -431,39 +391,6 @@ def flat_insert(cfg: VracerConfig, ts: TrainState, frep, batch, group=None):
                      torch.ones_like(rewards.movedim(1, -1)), mask.movedim(1, -1),
                      cfg.gamma, bootstrap=boot)
     return replay_flat.add_episodes(frep, batch, sv=V, vtg=vtg.movedim(-1, 1), boot=boot)
-
-
-def _loss_experience(cfg: VracerConfig, ts: TrainState, out, rows, vtg_next, scale, cutoff):
-    """korali VRACER loss over n iid sampled experiences (vracer.py:550-580).
-    ``out`` = (V, mu, sigma), the module's forward on the rows' prepared
-    observations, still attached to the graph: the one-step value target runs
-    through the just-refreshed retrace value of the successor, and the REFER
-    near/far split weighs the policy terms.  ``cutoff`` is a 0-d float32
-    tensor, and 1/cutoff is taken in float32 too, as JAX does."""
-    V, mu, sigma = out                                                # (n, na[, A])
-    rewards = _rescale_rewards(cfg, rows["rewards"], scale)
-    rho, logp = _joint_rho(cfg, rows["actions"], mu, sigma, rows["mu"], rows["sigma"])
-    near = (rho > torch.reciprocal(cutoff)) & (rho < cutoff)
-
-    rho_bar = torch.clamp(rho, max=1.0).detach()
-    Vsg = V.detach()
-    td = rewards + cfg.gamma * vtg_next - Vsg
-    vtarget = Vsg + rho_bar * td
-    adv = td
-
-    n_tot = float(rho.numel())
-    v_loss = 0.5 * torch.sum((V - vtarget) ** 2) / n_tot
-    pg_w = (torch.minimum(rho, cutoff.to(rho.dtype)) * adv * near).detach()
-    pg_loss = -torch.sum(pg_w * logp) / n_tot
-    kl = _trust_kl(cfg, rows["mu"], rows["sigma"], mu, sigma)
-    far = (~near).to(kl.dtype)
-    kl_loss = torch.sum(far * kl) / n_tot
-
-    loss = cfg.value_coef * v_loss + ts.beta * pg_loss + (1.0 - ts.beta) * kl_loss
-    metrics = dict(loss=loss, v_loss=v_loss, pg_loss=pg_loss, kl_loss=kl_loss,
-                   frac_far=far.mean(), mean_rho=rho.mean(), mean_sigma=sigma.mean(),
-                   mean_mu=mu.mean(), mean_V=V.mean())
-    return loss, {k: v.detach() for k, v in metrics.items()}
 
 
 def _annealed(cfg: VracerConfig, n_updates):
@@ -515,8 +442,8 @@ def update_experience(cfg: VracerConfig, ts: TrainState, frep, generator,
     ts.opt.zero_grad(set_to_none=True)
     out = ts.net(_prep_obs(cfg, ts, rows["obs"]))                    # (n, na[, A])
     V, mu, sigma = (t.detach() for t in out)
-    rho_new, _ = _joint_rho(cfg, rows["actions"], mu, sigma, rows["mu"], rows["sigma"])
-    off_new = ~((rho_new > inv_cutoff) & (rho_new < cutoff))
+    rho_new, off_new, terms = vracer_loss.rho_terms(cfg, rows, mu, sigma, scale, cutoff,
+                                                    inv_cutoff)
     boot_new = (_sanitized_final_V(cfg, ts, rows["fin_obs"])
                 * rows["truncated"].to(V.dtype)[..., None])
     replay_flat.refresh_metadata(frep, g, V, rho_new, off_new, boot_new)
@@ -524,8 +451,8 @@ def update_experience(cfg: VracerConfig, ts: TrainState, frep, generator,
         frep, g, cfg.episode_length, cfg.gamma, scale, cfg.reward_floor,
         scaled_floor=cfg.scaled_reward_floor)
 
-    loss, metrics = _loss_experience(cfg, ts, out, rows, vtg_next, scale, cutoff)
-    loss.backward()
+    metrics, backward = vracer_loss.experience_loss(cfg, ts.beta, out, rows, vtg_next, terms)
+    torch.autograd.backward(*backward)
     grads = [p.grad for p in ts.net.parameters()]
     if group is not None:
         _copy_(grads, group.pmean(grads))

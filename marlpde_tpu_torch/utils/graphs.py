@@ -61,13 +61,14 @@ import gc
 import torch
 
 from marlpde_tpu_torch.kernels import abcn, mlp
+from marlpde_tpu_torch.rl import vracer_loss
 from marlpde_tpu_torch.utils import profiling
 
 # graph replays since the last reset, of every graph
 replays = 0
 
 # the wrappers whose ``launches`` counters a replay advances
-_COUNTED = (abcn, mlp)
+_COUNTED = (abcn, mlp, vracer_loss)
 # other counters a replay advances: (module, attribute) pairs
 _OTHERS: list = []
 _eager_depth = 0

@@ -164,6 +164,7 @@ def trace_update(cfg, ts, frep, ids):
     copies.  Returns (numpy intermediates, summary dict)."""
     import torch
 
+    from marlpde_tpu_torch.rl import vracer_loss
     from marlpde_tpu_torch.rl import distributions as D
     from marlpde_tpu_torch.rl import replay_flat, vracer
     ts3, rep3 = _clone_state(cfg, ts), _clone_replay(frep)
@@ -174,7 +175,7 @@ def trace_update(cfg, ts, frep, ids):
     scale = vracer._insert_scale(cfg, ts, frep)
     x = vracer._prep_obs(cfg, ts, rows["obs"])
     V, mu, sigma = ts.net(x)
-    rho_new, _ = vracer._joint_rho(cfg, rows["actions"], mu.detach(), sigma.detach(),
+    rho_new, _ = vracer_loss.joint_rho(cfg, rows["actions"], mu.detach(), sigma.detach(),
                                    rows["mu"], rows["sigma"])
     off_new = ~((rho_new > inv_cutoff) & (rho_new < cutoff))
     boot_new = (vracer._sanitized_final_V(cfg, ts, rows["fin_obs"])
@@ -186,15 +187,16 @@ def trace_update(cfg, ts, frep, ids):
     lb, ub = cfg.action_low, cfg.action_high
     logp = D.joint_log_prob(rows["actions"], mu, sigma, lb, ub)
     logp_b = D.joint_log_prob(rows["actions"], rows["mu"], rows["sigma"], lb, ub)
-    log_ratio = (logp - logp_b) * vracer._rho_temper(cfg)
+    log_ratio = (logp - logp_b) * vracer_loss.rho_temper(cfg)
     rho = torch.exp(torch.clamp(log_ratio, -20.0, 20.0))
-    loss, metrics = vracer._loss_experience(cfg, ts, (V, mu, sigma), rows, vtg_next, scale,
-                                            cutoff)
+    loss, metrics = vracer_loss.loss_experience(cfg, ts.beta, (V, mu, sigma), rows, vtg_next,
+                                                 scale, cutoff)
     inter = dict(V=V, mu=mu, sigma=sigma, z_lo=(lb - mu) / sigma, z_hi=(ub - mu) / sigma,
                  at_lb=rows["actions"] <= lb, at_ub=rows["actions"] >= ub, logp=logp,
                  logp_b=logp_b, log_ratio=log_ratio, rho=rho, off=off_new,
-                 vtg_next=vtg_next, rewards=vracer._rescale_rewards(cfg, rows["rewards"], scale),
-                 kl=vracer._trust_kl(cfg, rows["mu"], rows["sigma"], mu, sigma))
+                 vtg_next=vtg_next,
+                 rewards=vracer_loss.rescale_rewards(cfg, rows["rewards"], scale),
+                 kl=vracer_loss.trust_kl(cfg, rows["mu"], rows["sigma"], mu, sigma))
     # each loss term's gradient with respect to the module's outputs
     terms = {}
     for k in ("v_loss", "pg_loss", "kl_loss"):
@@ -211,7 +213,8 @@ def trace_update(cfg, ts, frep, ids):
     try:
         with torch.autograd.detect_anomaly(check_nan=True):
             out2 = ts2.net(x)
-            loss2, _ = vracer._loss_experience(cfg, ts2, out2, rows, vtg_next, scale, cutoff)
+            loss2, _ = vracer_loss.loss_experience(cfg, ts2.beta, out2, rows, vtg_next, scale,
+                                                    cutoff)
             loss2.backward()
     except RuntimeError as e:
         anomaly = str(e).splitlines()[0]
@@ -236,14 +239,14 @@ def trace_update(cfg, ts, frep, ids):
 
 
 def _loss_term(cfg, ts, out, rows, vtg_next, scale, cutoff, name):
-    """The loss term ``name`` of ``vracer._loss_experience``, still attached
-    to ``out`` (the function returns its terms detached)."""
+    """The loss term ``name`` of ``vracer_loss.loss_experience``, still
+    attached to ``out`` (the function returns its terms detached)."""
     import torch
 
-    from marlpde_tpu_torch.rl import vracer
+    from marlpde_tpu_torch.rl import vracer_loss
     V, mu, sigma = out
-    rewards = vracer._rescale_rewards(cfg, rows["rewards"], scale)
-    rho, logp = vracer._joint_rho(cfg, rows["actions"], mu, sigma, rows["mu"], rows["sigma"])
+    rewards = vracer_loss.rescale_rewards(cfg, rows["rewards"], scale)
+    rho, logp = vracer_loss.joint_rho(cfg, rows["actions"], mu, sigma, rows["mu"], rows["sigma"])
     near = (rho > torch.reciprocal(cutoff)) & (rho < cutoff)
     n_tot = float(rho.numel())
     td = rewards + cfg.gamma * vtg_next - V.detach()
@@ -253,7 +256,7 @@ def _loss_term(cfg, ts, out, rows, vtg_next, scale, cutoff, name):
     if name == "pg_loss":
         pg_w = (torch.minimum(rho, cutoff.to(rho.dtype)) * td * near).detach()
         return -torch.sum(pg_w * logp) / n_tot
-    kl = vracer._trust_kl(cfg, rows["mu"], rows["sigma"], mu, sigma)
+    kl = vracer_loss.trust_kl(cfg, rows["mu"], rows["sigma"], mu, sigma)
     return torch.sum((~near).to(kl.dtype) * kl) / n_tot
 
 

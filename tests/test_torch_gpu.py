@@ -888,3 +888,183 @@ def test_span_encloses_its_kernels_on_the_profilers_clock(cuda):
     assert len(events) >= 40
     assert all(s.start_ns <= e.start_ns() and e.start_ns() + e.duration_ns() <= s.end_ns
                for e in events)
+
+
+# ------------------------------------------------------- the experience-mode loss head
+
+HEAD_CASES = ("forward", "jeffreys", "jeffreys-dimnorm", "forward-dimnorm", "correlation",
+              "cooperation")
+
+
+def _head_on_card(cuda, shape, case, seed=7):
+    """tests/test_torch_vracer_loss.py's minibatch (near and far rows, actions
+    at both bounds, F2's element) at a path's shape, on the card."""
+    from test_torch_vracer_loss import CASES, SHAPES, head_inputs
+    cfg, *tensors = head_inputs(SHAPES[shape], seed, **CASES[case])
+    to = lambda t: ({k: v.to(cuda) for k, v in t.items()} if isinstance(t, dict)
+                    else tuple(x.to(cuda) for x in t) if isinstance(t, tuple) else t.to(cuda))
+    return (cfg, *(to(t) for t in tensors))
+
+
+def _loss_head(cfg, beta, out, rows, vtg_next, scale, cutoff, inv_cutoff, plain=False):
+    """The loss head as an update runs it, through the op (the kernels) or its
+    plain version on the same tensors: (rho, off, metrics, dV, dmu, dsigma),
+    the gradients for a loss cotangent of 1, taken by
+    ``torch.autograd.backward`` as update_experience takes them."""
+    from marlpde_tpu_torch.rl import vracer_loss as VL
+    leaves = [t.clone().requires_grad_(True) for t in out]
+    mu, sigma = leaves[1].detach(), leaves[2].detach()
+    if plain:
+        rho, _ = VL.joint_rho(cfg, rows["actions"], mu, sigma, rows["mu"], rows["sigma"])
+        off = ~((rho > inv_cutoff) & (rho < cutoff))
+        loss, metrics = VL.loss_experience(cfg, beta, leaves, rows, vtg_next, scale, cutoff)
+        backward = ((loss,), None)
+    else:
+        rho, off, terms = VL.rho_terms(cfg, rows, mu, sigma, scale, cutoff, inv_cutoff)
+        metrics, backward = VL.experience_loss(cfg, beta, leaves, rows, vtg_next, terms)
+    torch.autograd.backward(*backward)
+    return rho, off, metrics, *(t.grad for t in leaves)
+
+
+def _head_shapes():
+    from test_torch_vracer_loss import SHAPE_ID, SHAPES
+    return [pytest.param(k, id=SHAPE_ID(k)) for k in SHAPES]
+
+
+@pytest.mark.parametrize("case", HEAD_CASES)
+@pytest.mark.parametrize("shape", _head_shapes())
+def test_loss_head_kernels_match_the_plain_version(cuda, shape, case):
+    """rho, the flags, the loss's metrics and dL/dV, dL/dmu, dL/dsigma of the
+    two kernels against the plain version on the card, at the minibatch
+    shape of every experience-mode path and at shapes where torch sums a row
+    in its other orders (float4 units from 128 entries on, rows 64 to 128
+    lanes wide, rows off a 16-byte unit, 130 agents): each tensor within
+    1e-6 of its max |plain|, the flags identical, the loss and metrics within
+    1e-6 of max(|plain|, 1) (their float32 sums over rows take another
+    order); two launches.  The elements equal bit for bit are printed, and
+    the F2 element's gradient is finite."""
+    from test_torch_vracer_loss import loss_grads_by_hand
+    from marlpde_tpu_torch.rl import vracer_loss as VL
+    args = _head_on_card(cuda, shape, case)
+    before = VL.launches
+    rho, off, metrics, *grads = _loss_head(*args)
+    torch.cuda.synchronize()
+    assert VL.launches == before + 2
+    p_rho, p_off, p_metrics, *p_grads = _loss_head(*args, plain=True)
+    hand = loss_grads_by_hand(*args[:7])
+    assert torch.equal(off, p_off)
+    for name, got, want, oracle in zip(("rho", "dV", "dmu", "dsigma"), [rho, *grads],
+                                       [p_rho, *p_grads], [p_rho, *hand]):
+        assert got.shape == want.shape and torch.isfinite(got).all(), name
+        err, top = (got - want).abs().max().item(), want.abs().max().item()
+        print(f"[vracer_loss] {shape} {case} {name}: max |kernel - plain| {err:.3e}, max "
+              f"|plain| {top:.3e}; bitwise equal to plain {int((got == want).sum())}, to the "
+              f"by-hand oracle {int((got == oracle).sum())} of {got.numel()}")
+        assert err <= 1e-6 * top, name
+    for k in VL.METRICS:
+        want = float(p_metrics[k])
+        assert abs(float(metrics[k]) - want) <= 1e-6 * max(abs(want), 1.0), k
+
+
+@pytest.mark.parametrize("shape", _head_shapes())
+def test_loss_head_kernels_give_the_same_bits_twice(cuda, shape):
+    args = _head_on_card(cuda, shape, "jeffreys-dimnorm", seed=11)
+    first, second = _loss_head(*args), _loss_head(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        if isinstance(a, dict):
+            assert all(torch.equal(a[k], b[k]) for k in a)
+        else:
+            assert _same_bits(a, b)
+
+
+def test_loss_head_kernels_refuse_what_they_do_not_take(cuda):
+    from marlpde_tpu_torch.rl import vracer_loss as VL
+    cfg, beta, out, rows, vtg_next, scale, cutoff, inv_cutoff = _head_on_card(cuda, "918",
+                                                                              "forward")
+    rows64 = {k: v.double() for k, v in rows.items()}
+    with pytest.raises(TypeError, match="float32"):
+        VL.rho_terms(cfg, rows64, out[1].double(), out[2].double(), scale, cutoff, inv_cutoff)
+    with pytest.raises(ValueError, match="not contiguous"):
+        VL.rho_terms(cfg, rows, out[1].transpose(0, 1).contiguous().transpose(0, 1),
+                     out[2], scale, cutoff, inv_cutoff)
+    _, _, terms = VL.rho_terms(cfg, rows, out[1], out[2], scale, cutoff, inv_cutoff)
+    with pytest.raises(ValueError, match="expected"):
+        VL.experience_loss(cfg, beta, out, rows, vtg_next[:, :4], terms)
+
+
+# the cells' learners at their minibatch shapes: run 918's (32 agents x 1
+# action, mbsize 8, the forward trust region, the cumulative scale) and run
+# 926's (1 agent x 32 actions, obs 64, mbsize 256, jeffreys, cutoff_dim_norm,
+# sigma_relative with sigma_max 5, the live-buffer scale)
+HEAD_CELLS = {
+    "918": dict(obs_dim=3, act_dim=1, num_agents=32, mini_batch_size=8, trust_region="forward",
+                reward_scale_source="cumulative", init_noise=0.1, sigma_max=1.0),
+    "926": dict(obs_dim=64, act_dim=32, num_agents=1, mini_batch_size=256,
+                trust_region="jeffreys", cutoff_dim_norm=True, mu_param="sigma_relative",
+                sigma_max=5.0, init_noise=1e-3),
+}
+
+
+def _cell_learner(cuda, cell):
+    """A width-256 learner of a cell's shapes on the card, with 8 inserted
+    episodes of 50 random steps (one truncated)."""
+    from marlpde_tpu_torch.rl import replay_flat, vracer
+    T, B = 50, 8
+    cfg = vracer.VracerConfig(episode_length=T, width=256, minibatch_mode="experience",
+                              replay_max_experiences=1024, replay_episode_capacity=16, lr=1e-3,
+                              **HEAD_CELLS[cell])
+    g = torch.Generator(device=cuda).manual_seed(0)
+    ts = vracer.init_train(cfg, g, device=cuda)
+    rng = np.random.default_rng(0)
+    na, D, A = cfg.num_agents, cfg.obs_dim, cfg.act_dim
+    batch = dict(obs=rng.standard_normal((B, T, na, D)),
+                 actions=rng.standard_normal((B, T, na, A)) * 0.3,
+                 mu=rng.standard_normal((B, T, na, A)) * 0.3,
+                 sigma=rng.uniform(0.05, 0.3, (B, T, na, A)),
+                 rewards=rng.standard_normal((B, T, na)) * 0.05, mask=np.ones((B, T), np.float32),
+                 final_obs=rng.standard_normal((B, na, D)),
+                 truncated=np.arange(B) == 1)
+    tb = {k: torch.from_numpy(np.asarray(v)).to(cuda) for k, v in batch.items()}
+    tb = {k: (v.float() if v.is_floating_point() else v) for k, v in tb.items()}
+    ts = vracer.observe_episodes(cfg, ts, tb)
+    rep = vracer.flat_insert(cfg, ts, replay_flat.init_flat(1024, 16, na, D, A, device=cuda), tb)
+    return cfg, ts, rep, g
+
+
+@pytest.mark.parametrize("cell", sorted(HEAD_CELLS))
+def test_cell_updates_through_the_loss_head_graphed_match_eager_and_repeat(cuda, cell):
+    """At a cell's shapes, two calls of UPDATE_CHUNK updates through
+    run_updates (the warm-up of the 50-update graph, then one replay) against
+    100 eager updates from the same state: the same bits in the parameters,
+    Adam's state, beta, the counter, the replay, the generator and the
+    metrics; the loss head's two launches an update counted per replay.
+    Then the whole of it again from a fresh learner: the same bits."""
+    from marlpde_tpu_torch.rl import vracer_loss as VL
+    from marlpde_tpu_torch.train import trainer
+    from marlpde_tpu_torch.utils import graphs
+    n = trainer.UPDATE_CHUNK
+    runs = []
+    for _ in range(2):
+        cfg, ts, rep, g = _cell_learner(cuda, cell)
+        ts_e, rep_e, g_e = _copies(ts, rep, g)
+        with graphs.eager():
+            for _ in range(2):
+                _, _, m_e = trainer.run_updates(cfg, ts_e, rep_e, g_e, n)
+        trainer.run_updates(cfg, ts, rep, g, n)
+        before, replays = VL.launches, graphs.replays
+        _, _, m_g = trainer.run_updates(cfg, ts, rep, g, n)
+        torch.cuda.synchronize()
+        assert graphs.replays - replays == 1 and VL.launches - before == 2 * n
+        left = list(ts.net.parameters()) + [s for st in ts.opt.state.values()
+                                            for s in st.values()]
+        right = list(ts_e.net.parameters()) + [s for st in ts_e.opt.state.values()
+                                               for s in st.values()]
+        left += [ts.beta, ts.n_updates, *graphs.tensors(rep), g.get_state()]
+        right += [ts_e.beta, ts_e.n_updates, *graphs.tensors(rep_e), g_e.get_state()]
+        assert int(ts.n_updates) == 2 * n and len(left) == len(right)
+        assert all(_same_bits(a, b) for a, b in zip(left, right))
+        assert all(_same_bits(m_g[k], m_e[k]) for k in m_e)
+        assert torch.isfinite(m_g["loss"])
+        runs.append([t.detach().clone() for t in left[:-1]] + [left[-1]])
+    assert all(_same_bits(a, b) for a, b in zip(*runs))

@@ -38,6 +38,7 @@ from marlpde_tpu_torch.envs import rollout as troll
 from marlpde_tpu_torch.kernels import abcn, mlp
 from marlpde_tpu_torch.rl import replay as treplay
 from marlpde_tpu_torch.rl import vracer as tv
+from marlpde_tpu_torch.rl import vracer_loss
 from marlpde_tpu_torch.train import trainer as ttr
 from marlpde_tpu_torch.utils import checkpoint as ckpt
 from marlpde_tpu_torch.utils import graphs
@@ -429,18 +430,20 @@ def test_replays_count_the_kernel_launches_the_capture_saw(monkeypatch):
     standins.use(monkeypatch, standins.Counted)
     monkeypatch.setattr(mlp, "launches", 10)
     monkeypatch.setattr(abcn, "launches", 20)
+    monkeypatch.setattr(vracer_loss, "launches", 30)
 
     def step():
-        mlp.launches += 2          # two MLP launches and one ABCN launch a step
-        abcn.launches += 1
+        mlp.launches += 2          # two MLP launches, one ABCN launch and the loss
+        abcn.launches += 1         # head's two launches a step
+        vracer_loss.launches += 2
 
     first, graph = graphs.capture("stand-in step", step, "cpu")
-    assert (mlp.launches, abcn.launches) == (12, 21)       # the warm-up ran for real
-    assert graph.launches == (1, 2)                        # in _COUNTED's order (abcn, mlp)
+    assert (mlp.launches, abcn.launches, vracer_loss.launches) == (12, 21, 32)  # the warm-up
+    assert graph.launches == (1, 2, 2)         # in _COUNTED's order (abcn, mlp, vracer_loss)
     replays = graphs.replays
     for _ in range(5):
         graph.replay()
-    assert (mlp.launches, abcn.launches) == (22, 26)
+    assert (mlp.launches, abcn.launches, vracer_loss.launches) == (22, 26, 42)
     assert graphs.replays - replays == 5 and graph.graph.replays == 5
 
 
@@ -457,7 +460,7 @@ def test_replays_count_the_all_reduces_the_capture_saw(monkeypatch):
         mlp.launches += 1
 
     _, graph = graphs.capture("stand-in update", step, "cpu")
-    assert (pmesh.all_reduces, graph.launches, graph.others) == (7, (0, 1), (2,))
+    assert (pmesh.all_reduces, graph.launches, graph.others) == (7, (0, 1, 0), (2,))
     for _ in range(3):
         graph.replay()
     assert (pmesh.all_reduces, mlp.launches) == (13, 4)

@@ -47,6 +47,7 @@ from marlpde_tpu.rl import running_stats as jrs
 from marlpde_tpu.rl import vracer as jv
 from marlpde_tpu.train import trainer as jtr
 from marlpde_tpu_torch.envs import registry as treg
+from marlpde_tpu_torch.rl import vracer_loss as tvl
 from marlpde_tpu_torch.rl import replay_flat as tflat
 from marlpde_tpu_torch.rl import running_stats as trs
 from marlpde_tpu_torch.rl import vracer as tv
@@ -186,7 +187,7 @@ def test_float32_replay_rewards_meet_a_float64_scale_in_float64_as_in_jax(site):
     if site == "loss-rescaling":
         cfg = jv.VracerConfig(obs_dim=3, act_dim=1, num_agents=NA, episode_length=T_)
         want = jv._rescale_rewards(cfg, jnp.asarray(r32), jnp.asarray(scale))
-        got = tv._rescale_rewards(tv.VracerConfig(**dataclasses.asdict(cfg)),
+        got = tvl.rescale_rewards(tv.VracerConfig(**dataclasses.asdict(cfg)),
                                   torch.from_numpy(r32), torch.tensor(scale))
     elif site == "normalizer-scale":
         stats = dict(mean=np.float64(0.01), m2=np.float64(0.4), count=np.float64(2000.0))

@@ -811,13 +811,16 @@ def two_rank_dryrun(tmp_path_factory):
 
 def test_dryrun_two_ranks(two_rank_dryrun):
     """Both modes on both ranks: updates, the train state equal bit for bit
-    across the ranks, filled shards, the checkpoint restored on each rank."""
+    across the ranks, filled shards, the checkpoint restored on each rank;
+    no kernel launched on the CPU, and each rank's experience-mode updates
+    (3 generations of 2, the replay warm from the first)."""
     out, _ = two_rank_dryrun
     assert out.returncode == 0, out.stdout + out.stderr
     verdict = json.loads(out.stdout.strip().splitlines()[-1])
     assert verdict == {"ok": True, "processes": 2, "global_devices": 2, "device": "cpu",
-                       "launches": [{"abcn_macro_step": 0, "mlp_forward": 0}] * 2,
-                       "generations": 3}
+                       "launches": [{"abcn_macro_step": 0, "mlp_forward": 0,
+                                     "vracer_loss": 0}] * 2,
+                       "generations": 3, "experience_updates": [6, 6]}
     assert out.stderr.count("experience-mode OK") == 2, out.stderr
     assert out.stderr.count("episode-mode OK") == 2, out.stderr
 
